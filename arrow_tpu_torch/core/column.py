@@ -1,0 +1,301 @@
+"""Columnar arrays on one explicit torch device (counterpart of
+arrow_tpu/core/column.py).
+
+  - A column holds tensors on one device; ops keep the device of their
+    inputs.  Construction from host data names the device.
+  - Validity is a dense bool tensor or None (core/validity.py).
+  - Null slots are zeroed at construction (arrow_tpu/core/column.py:11-14)
+    so every column has exactly one bit pattern per logical value; the
+    bitwise parity with the reference depends on it.
+  - Unsigned types use signed storage of the same width (dtypes.py);
+    host conversion views the bits back as the logical numpy dtype.
+
+Class map (reference -> here): PrimitiveColumn, StringColumn (host-side,
+enough to be a dictionary's values) and DictionaryColumn.  The other
+layouts join with ROADMAP A7.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .. import dtypes as dt
+from ..config import DeviceLike, resolve_device
+from ..errors import ArrowInvalid, ArrowNotImplementedError, ArrowTypeError
+from . import validity as vd
+
+__all__ = ["Column", "PrimitiveColumn", "StringColumn", "DictionaryColumn",
+           "column", "from_numpy"]
+
+
+class Column:
+    """Abstract base: a logical Arrow array (arrow-array Array trait)."""
+
+    dtype: dt.DataType
+    validity: vd.Mask
+
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def device(self) -> torch.device:
+        raise NotImplementedError
+
+    @property
+    def null_count(self) -> int:
+        return vd.null_count(self.validity, len(self))
+
+    def is_valid_mask(self) -> torch.Tensor:
+        return vd.make_mask(len(self), self.validity, self.device)
+
+    def slice(self, offset: int, length: int) -> "Column":
+        raise NotImplementedError
+
+    def to_pylist(self) -> list:
+        raise NotImplementedError
+
+    def _mask_host(self) -> Optional[np.ndarray]:
+        return None if self.validity is None else self.validity.cpu().numpy()
+
+    def __repr__(self):
+        return (f"{type(self).__name__}<{self.dtype!r}>[{len(self)}] "
+                f"{self.to_pylist()[:10]}")
+
+
+def _py_equal(a, b) -> bool:
+    """Recursive NaN-equal value comparison (byte-equality semantics:
+    NaN == NaN at matching bits, -0.0 != 0.0, like arrow-rs PartialEq)."""
+    if isinstance(a, float) and isinstance(b, float):
+        import struct as _st
+        return _st.pack("<d", a) == _st.pack("<d", b)
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(_py_equal(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(_py_equal(v, b[k])
+                                            for k, v in a.items())
+    return a == b
+
+
+def _check_mask(mask: vd.Mask, n: int, device: torch.device) -> None:
+    if mask is None:
+        return
+    if mask.dtype != torch.bool or mask.shape != (n,) \
+            or mask.device != device:
+        raise ArrowInvalid(
+            f"validity must be a ({n},) bool tensor on {device}, got "
+            f"{tuple(mask.shape)} {mask.dtype} on {mask.device}")
+
+
+class PrimitiveColumn(Column):
+    """Fixed-width values: numeric and boolean.
+
+    values: 1-D tensor of dtype.to_torch(); validity: bool mask or None.
+    """
+
+    def __init__(self, values: torch.Tensor, dtype: dt.DataType,
+                 validity: vd.Mask = None, *, _canonical: bool = False):
+        if values.dim() != 1 or values.dtype != dtype.to_torch():
+            raise ArrowInvalid(
+                f"{dtype!r} needs 1-D {dtype.to_torch()} storage, got "
+                f"{tuple(values.shape)} {values.dtype}")
+        _check_mask(validity, values.shape[0], values.device)
+        if not _canonical:
+            values = vd.canonicalize(values, validity)
+        self.values = values
+        self.dtype = dtype
+        self.validity = validity
+
+    def __len__(self):
+        return int(self.values.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    def slice(self, offset, length):
+        v = None if self.validity is None \
+            else self.validity[offset:offset + length]
+        return PrimitiveColumn(self.values[offset:offset + length],
+                               self.dtype, v, _canonical=True)
+
+    def to_numpy(self) -> np.ndarray:
+        """Host copy of the values in the logical numpy dtype."""
+        return self.values.cpu().numpy().view(self.dtype.to_numpy())
+
+    def to_pylist(self) -> list:
+        out = self.to_numpy().tolist()
+        mask = self._mask_host()
+        if mask is not None:
+            out = [v if ok else None for v, ok in zip(out, mask.tolist())]
+        return out
+
+
+class StringColumn(Column):
+    """Variable-length strings in the Arrow Utf8 layout (offsets (n+1,) +
+    data bytes), held on the host as CPU tensors.  In this slice it is
+    a dictionary's values; device string kernels join with ROADMAP A7."""
+
+    def __init__(self, offsets: torch.Tensor, data: torch.Tensor,
+                 dtype: dt.DataType = dt.utf8, validity: vd.Mask = None):
+        self.offsets = offsets          # int32/int64, shape (n+1,), CPU
+        self.data = data                # uint8, shape (nbytes,), CPU
+        self.dtype = dtype
+        self.validity = validity
+
+    def __len__(self):
+        return int(self.offsets.shape[0]) - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.offsets.device
+
+    @staticmethod
+    def from_pylist(values: Sequence, dtype: dt.DataType = dt.utf8
+                    ) -> "StringColumn":
+        offsets, chunks, mask = [0], [], []
+        for s in values:
+            if s is not None:
+                chunks.append(s.encode())
+            offsets.append(offsets[-1] + (len(chunks[-1]) if s is not None
+                                          else 0))
+            mask.append(s is not None)
+        data = np.frombuffer(b"".join(chunks), dtype=np.uint8).copy()
+        validity = None if all(mask) else torch.tensor(mask, dtype=torch.bool)
+        return StringColumn(torch.tensor(offsets, dtype=torch.int32),
+                            torch.from_numpy(data), dtype, validity)
+
+    def to_pylist(self) -> list:
+        offs = self.offsets.numpy().tolist()
+        data = self.data.numpy().tobytes()
+        mask = self._mask_host()
+        return [None if mask is not None and not mask[i]
+                else data[offs[i]:offs[i + 1]].decode()
+                for i in range(len(self))]
+
+
+class DictionaryColumn(Column):
+    """Dictionary-encoded column (arrow-array dictionary_array.rs:243).
+
+    codes: integer tensor on the column's device (0 under null slots);
+    values: the dictionary, any Column (usually a host StringColumn).
+    """
+
+    def __init__(self, codes: torch.Tensor, values: Column,
+                 validity: vd.Mask = None, *, _canonical: bool = False,
+                 ordered: bool = False):
+        if codes.dim() != 1 or codes.is_floating_point() \
+                or codes.dtype == torch.bool:
+            raise ArrowInvalid("dictionary codes must be a 1-D integer tensor")
+        _check_mask(validity, codes.shape[0], codes.device)
+        if not _canonical:
+            codes = vd.canonicalize(codes, validity)
+        self.codes = codes
+        self.values = values
+        self.validity = validity
+        index_type = dt.from_numpy_dtype(dt.torch_dtype_name(codes.dtype))
+        self.dtype = dt.dictionary(index_type, values.dtype, ordered=ordered)
+
+    def __len__(self):
+        return int(self.codes.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.codes.device
+
+    def slice(self, offset, length):
+        v = None if self.validity is None \
+            else self.validity[offset:offset + length]
+        return DictionaryColumn(self.codes[offset:offset + length],
+                                self.values, v, _canonical=True,
+                                ordered=bool(self.dtype.ordered))
+
+    def to_pylist(self) -> list:
+        vals = self.values.to_pylist()
+        codes = self.codes.cpu().numpy().tolist()
+        mask = self._mask_host()
+        return [None if mask is not None and not mask[i] else vals[c]
+                for i, c in enumerate(codes)]
+
+
+# ---- constructors ----------------------------------------------------------
+
+def _host_buffer(a, dtype) -> np.ndarray:
+    """A contiguous, writable numpy array torch can wrap (copies only when
+    `a` is not already one, e.g. a read-only view of a device array)."""
+    return np.require(a, dtype=dtype, requirements=["C", "W"])
+
+
+def from_numpy(values: np.ndarray, validity: Optional[np.ndarray] = None,
+               dtype: Optional[dt.DataType] = None,
+               device: DeviceLike = None, dictionary=None) -> Column:
+    """Build a port column from plain numpy buffers on `device`.
+
+    values: the value buffer, or the codes when `dictionary` is given;
+    validity: bool array or None; dtype: logical type (inferred from the
+    numpy dtype when None); dictionary: the dictionary's values, as a
+    Column or a Python list.  This is the port's way in for the
+    reference's state: a table's buffers, walked to numpy.
+    """
+    dev = resolve_device(device)
+    values = np.asarray(values)
+    mask = None if validity is None else torch.from_numpy(
+        _host_buffer(validity, bool)).to(dev)
+    if dictionary is not None:
+        if not isinstance(dictionary, Column):
+            dictionary = column(list(dictionary), device="cpu")
+        codes = torch.from_numpy(_host_buffer(values, values.dtype)).to(dev)
+        return DictionaryColumn(codes, dictionary, mask)
+    ldt = dtype or dt.from_numpy_dtype(values.dtype)
+    if not ldt.is_primitive:
+        raise ArrowNotImplementedError(f"from_numpy for {ldt!r}")
+    host = _host_buffer(values, ldt.to_numpy())
+    storage = torch.from_numpy(host.view(ldt.storage_numpy()))
+    return PrimitiveColumn(storage.to(dev), ldt, mask)
+
+
+def column(data, dtype: Optional[dt.DataType] = None, validity=None, *,
+           device: DeviceLike = None) -> Column:
+    """Build a Column from a Python list or a numpy array, on `device`.
+
+    Python lists may contain None (nulls).  Strings become a host
+    StringColumn; other layouts join with ROADMAP A7.
+    """
+    if isinstance(data, Column):
+        return data
+    if isinstance(data, np.ndarray) and data.dtype != object:
+        return from_numpy(data, validity, dtype, device)
+    if isinstance(data, (list, tuple)):
+        return _column_from_pylist(list(data), dtype, validity, device)
+    raise ArrowTypeError(f"cannot build column from {type(data)}")
+
+
+def _column_from_pylist(values: list, dtype, validity, device) -> Column:
+    non_null = [v for v in values if v is not None]
+    if dtype is None:
+        if not non_null:
+            raise ArrowNotImplementedError(
+                "all-null column needs an explicit dtype (ROADMAP A7)")
+        v0 = non_null[0]
+        if isinstance(v0, (bool, np.bool_)):
+            dtype = dt.bool_
+        elif isinstance(v0, (int, np.integer)):
+            dtype = dt.int64
+        elif isinstance(v0, (float, np.floating)):
+            dtype = dt.float64
+        elif isinstance(v0, str):
+            dtype = dt.utf8
+        else:
+            raise ArrowTypeError(f"cannot infer dtype from {type(v0)}")
+    if dtype.is_string:
+        return StringColumn.from_pylist(values, dtype)
+    if not dtype.is_primitive:
+        raise ArrowNotImplementedError(f"column of {dtype!r} (ROADMAP A7)")
+    if validity is None and len(non_null) != len(values):
+        validity = np.asarray([v is not None for v in values], dtype=bool)
+    filled = np.asarray([0 if v is None else v for v in values],
+                        dtype=dtype.to_numpy())
+    return from_numpy(filled, validity, dtype, device)

@@ -1,0 +1,47 @@
+"""Validity-mask algebra (counterpart of arrow_tpu/core/validity.py).
+
+A mask is a dense torch.bool tensor on the column's device, or None for
+"all valid" (the reference's elided null buffer).  Bit-packing would
+only add unpack traffic to every consuming kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+Mask = Optional[torch.Tensor]  # dense bool tensor or None (= all valid)
+
+
+def union(a: Mask, b: Mask) -> Mask:
+    """Validity of a binary kernel's output: valid iff both inputs valid
+    (NullBuffer::union, arrow-buffer/src/buffer/null.rs:78)."""
+    if a is None:
+        return b
+    if b is None:
+        return a
+    return torch.logical_and(a, b)
+
+
+def null_count(mask: Mask, length: int) -> int:
+    """Number of null slots (syncs one scalar)."""
+    if mask is None:
+        return 0
+    return length - int(mask.sum())
+
+
+def canonicalize(values: torch.Tensor, mask: Mask) -> torch.Tensor:
+    """Zero values under null slots, so (values, validity) pairs are
+    bitwise-deterministic (arrow_tpu/core/validity.py:57)."""
+    if mask is None:
+        return values
+    return torch.where(mask, values, torch.zeros((), dtype=values.dtype,
+                                                 device=values.device))
+
+
+def make_mask(length: int, mask: Mask, device) -> torch.Tensor:
+    """Materialize an explicit mask (all-True when None)."""
+    if mask is None:
+        return torch.ones((length,), dtype=torch.bool, device=device)
+    return mask

@@ -1,0 +1,203 @@
+"""Logical type system of the port (counterpart of arrow_tpu/dtypes.py).
+
+The same logical-type vocabulary as the reference, restricted to what
+the port's first slice carries: bool, the signed and unsigned integers,
+float16/32/64, utf8 and dictionary.  `to_torch` takes the place of
+`to_jax` (arrow_tpu/dtypes.py:142).
+
+Unsigned storage: torch's uint16/uint32/uint64 reject `+`, `<`, `>>`
+and `max`, so Arrow's unsigned types live on signed storage of the same
+width holding the same bits (uint8 keeps torch.uint8, which supports
+everything).  Anything that orders unsigned values goes through the
+sign-flip map; `to_numpy` names the logical numpy dtype for host views.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = [
+    "DataType", "bool_", "int8", "int16", "int32", "int64",
+    "uint8", "uint16", "uint32", "uint64", "float16", "float32", "float64",
+    "utf8", "dictionary", "Field", "Schema", "from_numpy_dtype",
+    "torch_dtype_name", "widen",
+]
+
+
+@dataclass(frozen=True)
+class DataType:
+    """A logical Arrow data type (cf. arrow-schema/src/datatype.rs:97)."""
+
+    name: str
+    index_type: Optional["DataType"] = None   # dictionary key type
+    value_type: Optional["DataType"] = None   # dictionary value type
+    # dictionary: values are sorted and code order IS value order
+    ordered: Optional[bool] = None
+
+    @property
+    def is_integer(self) -> bool:
+        return self.name in _INT_NAMES
+
+    @property
+    def is_signed_integer(self) -> bool:
+        return self.name in ("int8", "int16", "int32", "int64")
+
+    @property
+    def is_unsigned_integer(self) -> bool:
+        return self.name in ("uint8", "uint16", "uint32", "uint64")
+
+    @property
+    def is_floating(self) -> bool:
+        return self.name in ("float16", "float32", "float64")
+
+    @property
+    def is_numeric(self) -> bool:
+        return self.is_integer or self.is_floating
+
+    @property
+    def is_boolean(self) -> bool:
+        return self.name == "bool"
+
+    @property
+    def is_string(self) -> bool:
+        return self.name == "utf8"
+
+    @property
+    def is_primitive(self) -> bool:
+        """Fixed-width, single-tensor representable."""
+        return self.is_numeric or self.is_boolean
+
+    def to_torch(self) -> torch.dtype:
+        """torch dtype of the physical value tensor (signed storage for
+        uint16/32/64)."""
+        if self.name == "dictionary":
+            return self.index_type.to_torch()
+        m = _TORCH_DTYPE.get(self.name)
+        if m is None:
+            raise TypeError(f"{self} has no single-tensor physical dtype")
+        return m
+
+    def to_numpy(self) -> np.dtype:
+        """Logical numpy dtype: the host view of the storage bits."""
+        if self.name == "dictionary":
+            return self.index_type.to_numpy()
+        if self.name not in _TORCH_DTYPE:
+            raise TypeError(f"{self} has no single-tensor physical dtype")
+        return np.dtype(self.name)
+
+    def storage_numpy(self) -> np.dtype:
+        """numpy dtype of the storage bits (signed for uint16/32/64)."""
+        return np.dtype(torch_dtype_name(self.to_torch()))
+
+    @property
+    def byte_width(self) -> int:
+        return self.to_numpy().itemsize
+
+    def __repr__(self) -> str:
+        if self.name == "dictionary":
+            return f"dictionary<{self.index_type!r}, {self.value_type!r}>"
+        return self.name
+
+
+_INT_NAMES = ("int8", "int16", "int32", "int64",
+              "uint8", "uint16", "uint32", "uint64")
+
+_TORCH_DTYPE = {
+    "bool": torch.bool,
+    "int8": torch.int8, "int16": torch.int16, "int32": torch.int32,
+    "int64": torch.int64,
+    "uint8": torch.uint8, "uint16": torch.int16, "uint32": torch.int32,
+    "uint64": torch.int64,
+    "float16": torch.float16, "float32": torch.float32,
+    "float64": torch.float64,
+}
+
+bool_ = DataType("bool")
+int8 = DataType("int8")
+int16 = DataType("int16")
+int32 = DataType("int32")
+int64 = DataType("int64")
+uint8 = DataType("uint8")
+uint16 = DataType("uint16")
+uint32 = DataType("uint32")
+uint64 = DataType("uint64")
+float16 = DataType("float16")
+float32 = DataType("float32")
+float64 = DataType("float64")
+utf8 = DataType("utf8")
+
+_BY_NUMPY = {d.name: d for d in (int8, int16, int32, int64, uint8, uint16,
+                                 uint32, uint64, float16, float32, float64)}
+_BY_NUMPY["bool"] = bool_
+
+
+def torch_dtype_name(d: torch.dtype) -> str:
+    """'int64' for torch.int64: the numpy name of a torch dtype."""
+    return str(d).removeprefix("torch.")
+
+
+def widen(values: torch.Tensor, d: DataType) -> torch.Tensor:
+    """The exact int64 value of integer storage of logical type `d`:
+    sign-extended for signed types, zero-extended for unsigned ones
+    (uint64 keeps its bits)."""
+    w = values.to(torch.int64)
+    if d.is_unsigned_integer and d.byte_width < 8:
+        w = w & ((1 << (8 * d.byte_width)) - 1)
+    return w
+
+
+def from_numpy_dtype(d) -> DataType:
+    """Logical type of a numpy dtype (fixed-width types only)."""
+    name = np.dtype(d).name
+    if name not in _BY_NUMPY:
+        from .errors import ArrowTypeError
+        raise ArrowTypeError(f"no logical type for {name}")
+    return _BY_NUMPY[name]
+
+
+def dictionary(index_type: DataType, value_type: DataType,
+               ordered: bool = False) -> DataType:
+    if not index_type.is_integer:
+        raise TypeError(f"dictionary index type must be integer: {index_type}")
+    return DataType("dictionary", index_type=index_type,
+                    value_type=value_type, ordered=True if ordered else None)
+
+
+@dataclass(frozen=True)
+class Field:
+    name: str
+    dtype: DataType
+    nullable: bool = True
+
+
+@dataclass(frozen=True)
+class Schema:
+    fields: Tuple[Field, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "fields", tuple(self.fields))
+
+    @property
+    def names(self):
+        return [f.name for f in self.fields]
+
+    def field(self, i) -> Field:
+        if isinstance(i, str):
+            return self.fields[self.index_of(i)]
+        return self.fields[i]
+
+    def index_of(self, name: str) -> int:
+        for i, f in enumerate(self.fields):
+            if f.name == name:
+                return i
+        raise KeyError(name)
+
+    def __len__(self):
+        return len(self.fields)
+
+    def __iter__(self):
+        return iter(self.fields)
