@@ -75,6 +75,12 @@ class Table:
     def __len__(self) -> int:
         return self.num_rows
 
+    def slice(self, offset: int, length: int) -> "Table":
+        """Rows [offset, offset + length), sharing the columns' storage
+        (arrow_tpu/core/table.py:145)."""
+        return Table(tuple(c.slice(offset, length) for c in self.columns),
+                     self.schema, _validated=True)
+
     def to_pydict(self):
         """(arrow_tpu/core/table.py:166)"""
         return {f.name: c.to_pylist()

@@ -24,7 +24,7 @@ __all__ = [
     "DataType", "bool_", "int8", "int16", "int32", "int64",
     "uint8", "uint16", "uint32", "uint64", "float16", "float32", "float64",
     "utf8", "dictionary", "Field", "Schema", "from_numpy_dtype",
-    "torch_dtype_name", "widen",
+    "torch_dtype_name", "widen", "storage_int",
 ]
 
 
@@ -141,13 +141,19 @@ def torch_dtype_name(d: torch.dtype) -> str:
 
 
 def widen(values: torch.Tensor, d: DataType) -> torch.Tensor:
-    """The exact int64 value of integer storage of logical type `d`:
-    sign-extended for signed types, zero-extended for unsigned ones
-    (uint64 keeps its bits)."""
+    """The exact int64 value of integer or bool storage of logical type
+    `d`: sign-extended for signed types, zero-extended for unsigned ones
+    (uint64 keeps its bits), 0/1 for bool."""
     w = values.to(torch.int64)
     if d.is_unsigned_integer and d.byte_width < 8:
         w = w & ((1 << (8 * d.byte_width)) - 1)
     return w
+
+
+def storage_int(x: int) -> int:
+    """The int64 storage value with the bits of an integer of any logical
+    type (x in [-2**63, 2**64)): uint64 values above 2**63 wrap."""
+    return x - (1 << 64) if x >= 1 << 63 else x
 
 
 def from_numpy_dtype(d) -> DataType:

@@ -205,19 +205,9 @@ def grouped_aggregate_plain(codes: torch.Tensor, num_groups: int,
     return sums, counts, keys
 
 
-def _launch(codes: torch.Tensor, G: int, sum_cols: Sequence[SumCol],
-            mm_cols: Sequence[MinMaxCol]):
+def _launch_one(lib, codes: torch.Tensor, G: int,
+                sum_cols: Sequence[SumCol], mm_cols: Sequence[MinMaxCol]):
     n_sum, n_mm = len(sum_cols), len(mm_cols)
-    smem = 16 * G * (n_sum + n_mm)
-    if smem > _SMEM_LIMIT:
-        raise ArrowInvalid(
-            f"grouped_aggregate: {n_sum} sum + {n_mm} min/max slots over "
-            f"{G} groups need {smem} B of shared memory (limit "
-            f"{_SMEM_LIMIT})")
-    lib = native.library().lib
-    if n_sum + n_mm > lib.atp_groupagg_max_slots():
-        raise ArrowInvalid(f"grouped_aggregate: at most "
-                           f"{lib.atp_groupagg_max_slots()} slots per launch")
     dev = codes.device
 
     def ptr(t):
@@ -249,6 +239,27 @@ def _launch(codes: torch.Tensor, G: int, sum_cols: Sequence[SumCol],
     keys = [(acc[mm_base + m * G:mm_base + (m + 1) * G],
              acc[mm_base + (n_mm + m) * G:mm_base + (n_mm + m + 1) * G])
             for m in range(n_mm)]
+    return sums, counts, keys
+
+
+def _launch(codes: torch.Tensor, G: int, sum_cols: Sequence[SumCol],
+            mm_cols: Sequence[MinMaxCol]):
+    """One launch holds at most `atp_groupagg_max_slots` slots and
+    16 B x G per slot of shared memory; more slots than that are split
+    across launches, each a full pass over the codes (at G = 1024, 14
+    slots a launch)."""
+    lib = native.library().lib
+    per = min(lib.atp_groupagg_max_slots(), _SMEM_LIMIT // (16 * G))
+    slots = [(True, c) for c in sum_cols] + [(False, c) for c in mm_cols]
+    sums, counts, keys = [], [], []
+    for i in range(0, max(len(slots), 1), per):
+        batch = slots[i:i + per]
+        s, c, k = _launch_one(lib, codes, G,
+                              [x for is_sum, x in batch if is_sum],
+                              [x for is_sum, x in batch if not is_sum])
+        sums += s
+        counts += c
+        keys += k
     return sums, counts, keys
 
 

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every kernel of the port is CUDA C++ for sm_90a in arrow_tpu_torch/csrc/
-with a plain C interface.  At first use, `nvcc` compiles all of them into
+with a plain C interface.  At first use, one `nvcc` per source compiles
+them all at once (in parallel), and a last `nvcc` links the objects into
 one shared library under build/arrow_tpu_torch/ at the root of the
 checkout (git-ignored), named by a hash of the sources and flags so an
 edited source builds anew; ctypes loads it.  Nothing is built when the
@@ -27,8 +28,7 @@ __all__ = ["library", "check", "BUILD_DIR", "NVCC_FLAGS"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "arrow_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-lineinfo", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _int, _i64, _ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
 # (argtypes, restype) of every C entry of csrc/*.cu
@@ -84,22 +84,48 @@ def library() -> Library:
     seconds, log = 0.0, ""
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)        # atomic: concurrent builds agree
+        seconds, log = _build(sources, path)
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype
     return Library(lib, path, seconds, log)
+
+
+def _run(cmds):
+    """Run commands side by side; (log, the failed command or None)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log, failed = "", None
+    for c, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        log += out
+        if p.returncode != 0 and failed is None:
+            failed = (c, p.returncode)
+    return log, failed
+
+
+def _build(sources, path: Path):
+    """One nvcc per source, all started together, then one link; the
+    library lands at `path` atomically (concurrent builds agree)."""
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / (src.stem + ".o")) for src in sources]
+        log, failed = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(src)]
+                            for src, o in zip(sources, objs)])
+        if failed is None:
+            lib = str(Path(tmp) / "lib.so")
+            link_log, failed = _run([[nvcc, "-gencode",
+                                      "arch=compute_90a,code=sm_90a",
+                                      "-shared", "-o", lib, *objs]])
+            log += link_log
+        if failed is not None:
+            raise RuntimeError(f"nvcc failed ({failed[1]}): "
+                               f"{' '.join(failed[0])}\n{log}")
+        os.replace(lib, path)
+    return time.perf_counter() - t0, log
 
 
 def check(status: int, what: str) -> None:

@@ -22,13 +22,12 @@ from arrow_tpu.ops.cast import cast as ref_cast
 from arrow_tpu.ops.groupby import AggSpec as RefAggSpec, group_by as ref_group_by
 from arrow_tpu_torch import pipeline
 from arrow_tpu_torch import dtypes as tdt
-from arrow_tpu_torch.errors import ArrowNotImplementedError
 from arrow_tpu_torch.kernels import compact as kc, groupagg as kg
 from arrow_tpu_torch.ops import filter as tf
 from arrow_tpu_torch.ops.groupby import AggSpec, _fast_agg_stage, group_by
 
 from torch_port_util import (assert_tables_equal, bits, cuda_device,  # noqa: F401
-                             port_column, port_table)
+                             port_column, port_table, route)
 
 ref_filter = importlib.import_module("arrow_tpu.ops.filter")
 ref_agg = importlib.import_module("arrow_tpu.ops.aggregate")
@@ -37,12 +36,6 @@ ref_num = importlib.import_module("arrow_tpu.ops.numeric")
 REPO = Path(__file__).resolve().parents[1]
 N = 4096
 AGGS = ["sum", "count", "min", "max", "count_all", "mean"]
-
-
-@pytest.fixture(params=["0", "1"], ids=["sort", "pallas"])
-def route(request, monkeypatch):
-    monkeypatch.setenv("ARROW_TPU_USE_PALLAS", request.param)
-    return request.param
 
 
 def _entry_inputs(n=N):
@@ -219,31 +212,29 @@ def test_encoded_partials_merge_exactly(rng):
 
 @pytest.mark.parametrize("case", ["plain-key", "repeated-values", "f64-min",
                                   "too-many-groups"])
-def test_group_by_outside_the_dictionary_plan_raises(case):
-    import arrow_tpu_torch as att
+def test_group_by_outside_the_dictionary_plan_raises(monkeypatch, case):
+    """Inputs outside the dictionary plan.  They raised while it was the
+    port's only plan; now the small-domain plan (plain-key) or the sort
+    plan takes each, and the output equals the reference's on both of
+    its routes."""
     codes = np.array([0, 1, 1], np.int32)
     if case == "plain-key":
-        t = att.Table.from_pydict({"k": [1, 2, 2], "v": [1, 2, 3]},
-                                  device="cpu")
-        aggs = [AggSpec("v", "sum")]
-    elif case == "repeated-values":
-        t = att.Table.from_numpy_columns(
-            {"k": {"values": codes, "dictionary": ["a", "a"]},
-             "v": {"values": np.arange(3)}}, device="cpu")
-        aggs = [AggSpec("v", "sum")]
-    elif case == "f64-min":
-        t = att.Table.from_numpy_columns(
-            {"k": {"values": codes, "dictionary": ["a", "b"]},
-             "v": {"values": np.arange(3.0)}}, device="cpu")
-        aggs = [AggSpec("v", "min")]
+        ref_t = at.Table.from_pydict({"k": at.column([1, 2, 2]),
+                                      "v": at.column([1, 2, 3])})
+        aggs = [("v", "sum")]
     else:
-        words = [f"w{i}" for i in range(kg.G_MAX)]
-        t = att.Table.from_numpy_columns(
-            {"k": {"values": codes, "dictionary": words},
-             "v": {"values": np.arange(3)}}, device="cpu")
-        aggs = [AggSpec("v", "sum")]
-    with pytest.raises(ArrowNotImplementedError, match="A5"):
-        group_by(t, ["k"], aggs)
+        words = {"repeated-values": ["a", "a"], "f64-min": ["a", "b"],
+                 "too-many-groups": [f"w{i}" for i in range(kg.G_MAX)]}
+        key = at.DictionaryColumn(jnp.asarray(codes),
+                                  at.column(words[case]), None)
+        v = np.arange(3.0) if case == "f64-min" else np.arange(3)
+        ref_t = at.Table.from_pydict({"k": key, "v": at.column(v)})
+        aggs = [("v", "min" if case == "f64-min" else "sum")]
+    got = group_by(port_table(ref_t), ["k"], [AggSpec(*a) for a in aggs])
+    for use_pallas in ("0", "1"):
+        monkeypatch.setenv("ARROW_TPU_USE_PALLAS", use_pallas)
+        assert_tables_equal(got, ref_group_by(
+            ref_t, ["k"], [RefAggSpec(*a) for a in aggs]))
 
 
 def test_cpu_tensors_never_reach_a_kernel(rng):

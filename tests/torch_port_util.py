@@ -18,6 +18,14 @@ import arrow_tpu_torch as att
 from arrow_tpu.core.column import _py_equal
 
 
+@pytest.fixture(params=["0", "1"], ids=["sort", "pallas"])
+def route(request, monkeypatch):
+    """Both routes of the reference: ARROW_TPU_USE_PALLAS=0 (its XLA
+    plans) and =1 (its Pallas plans, interpreted on the CPU)."""
+    monkeypatch.setenv("ARROW_TPU_USE_PALLAS", request.param)
+    return request.param
+
+
 @pytest.fixture
 def cuda_device():
     """The card, for tests of a kernel against its plain version; the
@@ -55,12 +63,17 @@ def port_column(col, device="cpu"):
     return att.from_numpy(device=device, **column_spec(col))
 
 
+def port_field(f) -> att.dtypes.Field:
+    """The port's Field for a reference Field, nullability included."""
+    return att.dtypes.Field(f.name, port_dtype(f.dtype), nullable=f.nullable)
+
+
 def port_table(table, device="cpu") -> att.Table:
-    """The port's Table holding the same buffers as a reference Table."""
-    return att.Table.from_numpy_columns(
-        {f.name: column_spec(c)
-         for f, c in zip(table.schema.fields, table.columns)},
-        device=device)
+    """The port's Table holding the same buffers as a reference Table,
+    under the reference schema's fields (nullability included)."""
+    cols = [port_column(c, device) for c in table.columns]
+    return att.Table(cols, att.dtypes.Schema(
+        tuple(port_field(f) for f in table.schema.fields)))
 
 
 def assert_same(got, want, what="") -> None:
@@ -81,8 +94,12 @@ def assert_columns_equal(got, want, what="") -> None:
 
 
 def assert_tables_equal(got, want) -> None:
-    """Same names, dtypes, rows and values (to_pydict under _py_equal)."""
+    """Same fields (name, dtype, nullable), rows and values (to_pydict
+    under _py_equal)."""
     assert got.column_names == want.column_names
+    for g, w in zip(got.schema.fields, want.schema.fields):
+        assert (g.name, repr(g.dtype), g.nullable) == \
+            (w.name, repr(w.dtype), w.nullable), (g, w)
     for name, g, w in zip(got.column_names, got.columns, want.columns):
         assert_columns_equal(g, w, name)
 
@@ -90,3 +107,37 @@ def assert_tables_equal(got, want) -> None:
 def bits(a: np.ndarray) -> np.ndarray:
     """The raw bits of a numpy array, for bitwise comparison."""
     return a.view(f"u{a.dtype.itemsize}") if a.dtype != bool else a
+
+
+def rand_values(rng, dtype, n: int, small: bool = False) -> np.ndarray:
+    """n values of a numpy dtype.  Integers span the type's whole range
+    (small: [0, 40)); floats are nonzero multiples of 1/8 below 250 in
+    magnitude, exact in every float type so sums are order-free (small:
+    multiples of 1/2 in [-10, 10)), with NaN, +inf, -inf and -0.0 planted
+    (small: NaN, +inf, -inf, -0.0 and +0.0 all present)."""
+    d = np.dtype(dtype)
+    if d == bool:
+        return rng.random(n) < 0.5
+    if d.kind in "iu":
+        if small:
+            return rng.integers(0, 40, n).astype(d)
+        info = np.iinfo(d)
+        return rng.integers(info.min, info.max, n, dtype=d, endpoint=True)
+    if small:
+        v = (rng.integers(-20, 20, n) / 2).astype(d)
+        v[3::29] = -0.0
+        v[4::31] = np.inf
+        v[5::37] = -np.inf
+    else:
+        v = (rng.integers(1, 2000, n) * rng.choice([-1, 1], n) / 8).astype(d)
+        v[3::97] = -0.0
+        v[4::89] = np.inf
+        v[5::83] = -np.inf
+    v[::53] = np.nan
+    return v
+
+
+def rand_column(rng, dtype, n: int, nulls: float = 0.1, small=False):
+    """A reference column of rand_values with a share of nulls."""
+    valid = None if not nulls else rng.random(n) >= nulls
+    return at.column(rand_values(rng, dtype, n, small), validity=valid)
