@@ -3,10 +3,15 @@ arrow_tpu/kernels/groupagg.py, kernels/groupminmax.py and
 kernels/segagg.py).
 
 One pass over codes in [0, G), G <= G_MAX; codes out of range are
-dropped.  For each SumCol: a wrapping-i64 SUM where null rows add 0, and
-a COUNT of valid rows (a SumCol without values only counts).  For each
-MinMaxCol: MIN and MAX over valid rows in order-key space.  Empty groups
-get the identities (sum/count 0, min key UINT64_MAX, max key 0).
+dropped.  The codes come from one key column at its own width (1, 2, 4
+or 8 bytes, bool included): a row's code is key - `base` (mod 2^64),
+and G - 1 where `codes_valid` is False, so a caller with a range-scanned
+key hands it over as it is, without a digit pass.  For each SumCol: a
+wrapping-i64 SUM where null rows add 0, and a COUNT of valid rows (a
+SumCol without values only counts).  For each MinMaxCol: MIN and MAX
+over valid rows in order-key space.  Empty groups get the identities
+(sum/count 0, min key UINT64_MAX, max key 0).  Every SumCol without
+validity reads one shared count of in-range rows.
 
 Order keys are u64 values held in int64 tensors (the same bits).  They
 take the place of the reference's (hi, lo) i32 order planes, which
@@ -22,6 +27,7 @@ csrc/groupagg.cu or raise.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -33,15 +39,14 @@ from ..errors import ArrowInvalid
 from . import native
 
 __all__ = ["G_MAX", "SumCol", "MinMaxCol", "grouped_aggregate",
-           "grouped_aggregate_plain", "encode_order_key", "decode_order_key",
-           "grouped_sum_count", "grouped_count", "grouped_min_max"]
+           "grouped_aggregate_plain", "row_codes", "encode_order_key",
+           "decode_order_key", "grouped_sum_count", "grouped_count",
+           "grouped_min_max"]
 
 G_MAX = 1024                      # the reference's bound (segagg.py:24)
 _SIGN = -(1 << 63)                # int64 bits of 1 << 63
-# dynamic shared memory a block may use: 227 KB less the kernel's static
-# table of 64 slot descriptors (32 B each)
-_SMEM_LIMIT = 227 * 1024 - 64 * 32
 _UNSIGNED, _SIGNED, _FLOAT = 0, 1, 2
+_SUM, _MINMAX = 0, 1              # slot kinds of csrc/groupagg.cu
 
 
 @dataclass
@@ -140,25 +145,40 @@ def decode_order_key(key: torch.Tensor, d: dt.DataType) -> torch.Tensor:
     return h.view(torch.float16)
 
 
-def _check_args(codes, num_groups, sum_cols, mm_cols):
-    if codes.dim() != 1 or codes.dtype != torch.int32 \
-            or not codes.is_contiguous():
-        raise ArrowInvalid("codes must be a contiguous 1-D int32 tensor")
+def _key_type(codes: torch.Tensor, codes_dtype: Optional[dt.DataType]
+              ) -> dt.DataType:
+    d = _logical(codes, codes_dtype)
+    if not (d.is_integer or d.is_boolean):
+        raise ArrowInvalid(f"grouped_aggregate: codes of {d!r}")
+    return d
+
+
+def _check_args(codes, num_groups, sum_cols, mm_cols, base, codes_valid,
+                codes_dtype):
+    if codes.dim() != 1 or not codes.is_contiguous() \
+            or codes.element_size() not in (1, 2, 4, 8):
+        raise ArrowInvalid("codes must be a contiguous 1-D tensor of 1, 2, "
+                           "4 or 8-byte integers")
+    _key_type(codes, codes_dtype)
     if not 0 < num_groups <= G_MAX:
         raise ArrowInvalid(f"grouped_aggregate: num_groups must be in "
                            f"[1, {G_MAX}], got {num_groups}")
+    if not -(1 << 63) <= base < 1 << 64:
+        raise ArrowInvalid(f"grouped_aggregate: base {base} is not a 64-bit "
+                           f"integer")
     n = codes.shape[0]
+    tensors = [(codes_valid, "codes_valid")]
     for c in (*sum_cols, *mm_cols):
-        for t, what in ((c.values, "values"), (c.valid, "valid")):
-            if t is None:
-                continue
-            if t.dim() != 1 or t.shape[0] != n or t.device != codes.device \
-                    or not t.is_contiguous():
-                raise ArrowInvalid(
-                    f"grouped_aggregate: {what} must be contiguous "
-                    f"({n},) on {codes.device}")
-        if c.valid is not None and c.valid.dtype != torch.bool:
-            raise ArrowInvalid("grouped_aggregate: valid must be bool")
+        tensors += [(c.values, "values"), (c.valid, "valid")]
+    for t, what in tensors:
+        if t is None:
+            continue
+        if t.dim() != 1 or t.shape[0] != n or t.device != codes.device \
+                or not t.is_contiguous():
+            raise ArrowInvalid(f"grouped_aggregate: {what} must be "
+                               f"contiguous ({n},) on {codes.device}")
+        if what != "values" and t.dtype != torch.bool:
+            raise ArrowInvalid(f"grouped_aggregate: {what} must be bool")
     for c in sum_cols:
         if c.values is not None and not _logical(c.values, c.dtype).is_integer:
             raise ArrowInvalid("grouped_aggregate: sums need integer values")
@@ -166,17 +186,33 @@ def _check_args(codes, num_groups, sum_cols, mm_cols):
         _cls(_logical(c.values, c.dtype))
 
 
+def row_codes(codes: torch.Tensor, num_groups: int, base: int = 0,
+              codes_valid: Optional[torch.Tensor] = None,
+              codes_dtype: Optional[dt.DataType] = None) -> torch.Tensor:
+    """Each row's int64 code as the kernel computes it: codes - base
+    (mod 2^64), num_groups - 1 where codes_valid is False; a code
+    outside [0, num_groups) drops its row."""
+    c = dt.widen(codes, _key_type(codes, codes_dtype)) - dt.storage_int(base)
+    if codes_valid is not None:
+        c = torch.where(codes_valid, c, num_groups - 1)
+    return c
+
+
 def grouped_aggregate_plain(codes: torch.Tensor, num_groups: int,
                             sum_cols: Sequence[SumCol] = (),
-                            mm_cols: Sequence[MinMaxCol] = ()):
+                            mm_cols: Sequence[MinMaxCol] = (),
+                            base: int = 0,
+                            codes_valid: Optional[torch.Tensor] = None,
+                            codes_dtype: Optional[dt.DataType] = None):
     """The kernel's plain PyTorch version: (sums, counts, [(min_keys,
     max_keys)]), every entry an int64 (G,) tensor."""
     G = num_groups
-    in_range = (codes >= 0) & (codes < G)
+    c64 = row_codes(codes, G, base, codes_valid, codes_dtype)
+    in_range = (c64 >= 0) & (c64 < G)
 
     def buckets(valid):            # dropped rows land in bucket G
         ok = in_range if valid is None else in_range & valid
-        return torch.where(ok, codes.to(torch.int64), G)
+        return torch.where(ok, c64, G)
 
     def zeros():
         return torch.zeros(G + 1, dtype=torch.int64, device=codes.device)
@@ -184,9 +220,15 @@ def grouped_aggregate_plain(codes: torch.Tensor, num_groups: int,
     sums, counts, keys = [], [], []
     ones = torch.ones((), dtype=torch.int64, device=codes.device) \
         .expand(codes.shape[0])
+    count_all = None
     for c in sum_cols:
         b = buckets(c.valid)
-        counts.append(zeros().index_add_(0, b, ones)[:G])
+        if c.valid is not None:
+            counts.append(zeros().index_add_(0, b, ones)[:G])
+        else:
+            if count_all is None:
+                count_all = zeros().index_add_(0, b, ones)[:G]
+            counts.append(count_all)
         s = zeros()
         if c.values is not None:
             s.index_add_(0, b, dt.widen(c.values,
@@ -205,69 +247,100 @@ def grouped_aggregate_plain(codes: torch.Tensor, num_groups: int,
     return sums, counts, keys
 
 
-def _launch_one(lib, codes: torch.Tensor, G: int,
-                sum_cols: Sequence[SumCol], mm_cols: Sequence[MinMaxCol]):
-    n_sum, n_mm = len(sum_cols), len(mm_cols)
-    dev = codes.device
-
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
-    rows = []
-    for c in sum_cols:
-        d = None if c.values is None else _logical(c.values, c.dtype)
-        rows.append([ptr(c.values), ptr(c.valid),
-                     0 if d is None else d.byte_width,
-                     _SIGNED if d is None else _cls(d)])
-    for c in mm_cols:
-        d = _logical(c.values, c.dtype)
-        rows.append([ptr(c.values), ptr(c.valid), d.byte_width, _cls(d)])
-    desc = torch.tensor(rows or [[0, 0, 0, 0]], dtype=torch.int64).to(dev)
-    acc = torch.zeros(2 * G * (n_sum + n_mm) or 1, dtype=torch.int64,
-                      device=dev)
-    mm_base = 2 * G * n_sum
-    acc[mm_base:mm_base + G * n_mm] = -1          # min identity UINT64_MAX
-    status = lib.atp_groupagg(
-        dev.index, codes.data_ptr(), codes.shape[0], G, desc.data_ptr(),
-        n_sum, n_mm, acc.data_ptr(), acc[G * n_sum:].data_ptr(),
-        acc[mm_base:].data_ptr(), acc[mm_base + G * n_mm:].data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    grouped_aggregate.launches += 1
-    native.check(status, "grouped_aggregate kernel")
-    sums = [acc[s * G:(s + 1) * G] for s in range(n_sum)]
-    counts = [acc[(n_sum + s) * G:(n_sum + s + 1) * G] for s in range(n_sum)]
-    keys = [(acc[mm_base + m * G:mm_base + (m + 1) * G],
-             acc[mm_base + (n_mm + m) * G:mm_base + (n_mm + m + 1) * G])
-            for m in range(n_mm)]
-    return sums, counts, keys
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _launch(codes: torch.Tensor, G: int, sum_cols: Sequence[SumCol],
-            mm_cols: Sequence[MinMaxCol]):
-    """One launch holds at most `atp_groupagg_max_slots` slots and
-    16 B x G per slot of shared memory; more slots than that are split
-    across launches, each a full pass over the codes (at G = 1024, 14
-    slots a launch)."""
+            mm_cols: Sequence[MinMaxCol], base: int,
+            codes_valid: Optional[torch.Tensor],
+            codes_dtype: Optional[dt.DataType]):
+    """Launches of csrc/groupagg.cu, each a full pass over the codes.
+    Shared memory per group: 4 B for the count of in-range rows (every
+    SumCol without validity reads it), 8 B for a sum, 4 B for a count of
+    valid rows, 8 B for a min/max of 4 bytes or fewer and 16 B above.
+    Slots past one block's shared memory (or past
+    `atp_groupagg_max_slots`) go to further launches: at G = 1,024, 14
+    min/max slots of 8 bytes ride one launch."""
     lib = native.library().lib
-    per = min(lib.atp_groupagg_max_slots(), _SMEM_LIMIT // (16 * G))
-    slots = [(True, c) for c in sum_cols] + [(False, c) for c in mm_cols]
-    sums, counts, keys = [], [], []
-    for i in range(0, max(len(slots), 1), per):
-        batch = slots[i:i + per]
-        s, c, k = _launch_one(lib, codes, G,
-                              [x for is_sum, x in batch if is_sum],
-                              [x for is_sum, x in batch if not is_sum])
-        sums += s
-        counts += c
-        keys += k
+    dev = codes.device
+    rows, sizes = [], []      # slot descriptors and their outputs' offsets
+    n_out = 0
+
+    def region():
+        nonlocal n_out
+        n_out += G
+        return n_out - G
+
+    cnt_all = region() if any(c.valid is None for c in sum_cols) else -1
+    sum_at, cnt_at, mm_at = [], [], []
+    for c in sum_cols:
+        d = None if c.values is None else _logical(c.values, c.dtype)
+        s_off = -1 if d is None else region()
+        c_off = cnt_all if c.valid is None else region()
+        sum_at.append(s_off)
+        cnt_at.append(c_off)
+        if d is None and c.valid is None:
+            continue                       # the shared count is its count
+        rows.append([_ptr(c.values), _ptr(c.valid), _SUM,
+                     1 if d is None else d.byte_width,
+                     _UNSIGNED if d is None else _cls(d), s_off,
+                     -1 if c.valid is None else c_off])
+        sizes.append((0 if d is None else 8) + (0 if c.valid is None else 4))
+    for c in mm_cols:
+        d = _logical(c.values, c.dtype)
+        mn, mx = region(), region()
+        mm_at.append((mn, mx))
+        rows.append([_ptr(c.values), _ptr(c.valid), _MINMAX, d.byte_width,
+                     _cls(d), mn, mx])
+        sizes.append(16 if d.byte_width == 8 else 8)
+
+    out = torch.zeros(max(n_out, 1), dtype=torch.int64, device=dev)
+    for mn, _ in mm_at:
+        out[mn:mn + G] = -1                # min identity UINT64_MAX
+    kd = _key_type(codes, codes_dtype)
+    budget = (lib.atp_groupagg_smem_limit() - 4) // G   # bytes a group
+    batches, batch, used = [], [], 4 if cnt_all >= 0 else 0
+    for row, size in zip(rows, sizes):
+        if batch and (used + size > budget
+                      or len(batch) == lib.atp_groupagg_max_slots()):
+            batches.append(batch)
+            batch, used = [], 0
+        batch.append(row)
+        used += size
+    if batch or cnt_all >= 0:
+        batches.append(batch)
+    for i, batch in enumerate(batches):
+        # read by the C entry before it returns: host memory, no upload
+        desc = (ctypes.c_longlong * max(7 * len(batch), 1))(
+            *[v for row in batch for v in row])
+        status = lib.atp_groupagg(
+            dev.index, codes.data_ptr(), _ptr(codes_valid),
+            dt.storage_int(base), codes.element_size(),
+            int(kd.is_signed_integer), codes.shape[0], G, desc,
+            len(batch), cnt_all if i == 0 else -1, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        grouped_aggregate.launches += 1
+        native.check(status, "grouped_aggregate kernel")
+    zeros = torch.zeros(G, dtype=torch.int64, device=dev)
+    sums = [zeros if s < 0 else out[s:s + G] for s in sum_at]
+    counts = [out[c:c + G] for c in cnt_at]
+    keys = [(out[mn:mn + G], out[mx:mx + G]) for mn, mx in mm_at]
     return sums, counts, keys
 
 
 def grouped_aggregate(codes: torch.Tensor, num_groups: int,
                       sum_cols: Sequence[SumCol] = (),
                       mm_cols: Sequence[MinMaxCol] = (),
-                      decode: bool = True):
+                      decode: bool = True, *, base: int = 0,
+                      codes_valid: Optional[torch.Tensor] = None,
+                      codes_dtype: Optional[dt.DataType] = None):
     """All grouped aggregates in one pass (groupagg.py:248).
+
+    `codes` is a key column of 1, 2, 4 or 8-byte integers or bools of
+    logical type `codes_dtype` (None: its storage's own type); a row's
+    code is codes - base (mod 2^64), or num_groups - 1 where
+    `codes_valid` is False (see `row_codes`).
 
     Returns (sums, counts, minmaxes): sums[i] / counts[i] are int64 (G,)
     for sum_cols[i]; minmaxes[j] is a (min, max) pair decoded to
@@ -276,9 +349,11 @@ def grouped_aggregate(codes: torch.Tensor, num_groups: int,
     identities still distinct from real extremes, for exact merges.
     """
     sum_cols, mm_cols = tuple(sum_cols), tuple(mm_cols)
-    _check_args(codes, num_groups, sum_cols, mm_cols)
+    _check_args(codes, num_groups, sum_cols, mm_cols, base, codes_valid,
+                codes_dtype)
     run = _launch if on_cuda(codes) else grouped_aggregate_plain
-    sums, counts, keys = run(codes, num_groups, sum_cols, mm_cols)
+    sums, counts, keys = run(codes, num_groups, sum_cols, mm_cols, base,
+                             codes_valid, codes_dtype)
     if not decode:
         return sums, counts, keys
     minmaxes = []

@@ -36,15 +36,16 @@ _SIGNATURES = {
     "atp_error_string": ([_int], ctypes.c_char_p),
     "atp_compact_tile_rows": ([], _int),
     "atp_compact_max_cols": ([], _int),
-    # device, keep, n, cols, ncols, cap, tile_counts, tile_offsets, count,
-    # stream
-    "atp_compact": ([_int, _ptr, _i64, _ptr, _int, _i64, _ptr, _ptr, _ptr,
+    # device, keep, n, cols (host), ncols, cap, positions, pos_width,
+    # scratch, stream
+    "atp_compact": ([_int, _ptr, _i64, _ptr, _int, _i64, _ptr, _int, _ptr,
                      _ptr], _int),
     "atp_groupagg_max_slots": ([], _int),
-    # device, codes, n, G, slots, n_sum, n_mm, g_sum, g_cnt, g_min, g_max,
-    # stream
-    "atp_groupagg": ([_int, _ptr, _i64, _int, _ptr, _int, _int, _ptr, _ptr,
-                      _ptr, _ptr, _ptr], _int),
+    "atp_groupagg_smem_limit": ([], _int),
+    # device, key, key_valid, base, key_width, key_signed, n, G,
+    # slots (host), nslots, cnt_all_out, out, stream
+    "atp_groupagg": ([_int, _ptr, _ptr, _i64, _int, _int, _i64, _int, _ptr,
+                      _int, _i64, _ptr, _ptr], _int),
 }
 
 

@@ -10,14 +10,15 @@ Plans, tried in this order; each gives the reference's output:
   2. small-domain plan -- integer or bool keys whose combined range
      prod(kmax - kmin + 1 + has_null) is at most G_MAX, aggregates that
      K2 covers: digit = key - kmin with null as the top digit, the same
-     single K2 pass.  The reference bins these keys with sorts
+     single K2 pass; one key goes to K2 as it is, which computes the
+     digit itself.  The reference bins these keys with sorts
      (_int_range_fast_path, groupby.py:1894-2102); the outputs are the
      same.
   3. sort plan -- everything else (groupby.py:271-307,1574-1602,
      2422-2597): key encode (ops/row_format.py) and a stable sort; run
-     starts by a shifted compare; kernel K1 compacts the row positions
-     and each run's first-row index at the run starts, and reading its
-     count is the plan's one sync; sums and counts by cumsum and
+     starts by a shifted compare; kernel K1 compacts each run's
+     first-row index at the run starts and emits their positions, and
+     reading its count is the plan's one sync; sums and counts by cumsum and
      boundary difference (exact for integers: wrapping addition is
      associative); min/max by K2 over the group ids (integers, at most
      G_MAX groups) or by a secondary (group, class, value) sort; output
@@ -53,7 +54,8 @@ from ..core.column import (Column, DictionaryColumn, PrimitiveColumn,
 from ..core.table import Table
 from ..errors import ArrowInvalid, ArrowNotImplementedError
 from ..kernels.compact import compact
-from ..kernels.groupagg import G_MAX, MinMaxCol, SumCol, grouped_aggregate
+from ..kernels.groupagg import (G_MAX, MinMaxCol, SumCol, grouped_aggregate,
+                                row_codes)
 from . import row_format as rf
 from .concat import concat_tables
 from .row_format import KeyRange, SortKey, dictionary_value_ranks
@@ -258,14 +260,17 @@ def _range_scan(table: Table, key_cols, aggs):
 
 @dataclass
 class _Digits:
-    """One key's dense codes for the K2 plans: digits in [0, size), null
-    rows (where `validity` is False) take the digit `size`; `ranks` give
-    the value order of the digits."""
+    """One key's dense codes for the K2 plans: digits codes - offset in
+    [0, size) (codes of logical type `dtype`, None: the storage's own),
+    null rows (where `validity` is False) take the digit `size`; `ranks`
+    give the value order of the digits."""
     codes: torch.Tensor
     validity: Optional[torch.Tensor]
     size: int
     null_digit: bool
     ranks: np.ndarray
+    offset: int = 0
+    dtype: Optional[dt.DataType] = None
 
     @property
     def base(self) -> int:
@@ -276,15 +281,21 @@ def _fast_agg_stage(bases: Sequence[int], g_total: int, key_parts,
                     sum_cols: Sequence[SumCol], mm_cols: Sequence[MinMaxCol],
                     decode: bool = True):
     """Mixed-radix combined codes, then one K2 pass (groupby.py:330).
-    key_parts: (codes, validity) per key; null rows take the digit
-    base - 1.  decode=False keeps min/max as undecoded u64 order keys, so
-    partials of chunks can merge exactly (the role of
+    key_parts: (codes, validity, offset, dtype) per key; a digit is
+    codes - offset, and null rows take the digit base - 1.  One key
+    whose radix is the group count goes to K2 as it is: K2 computes the
+    digits itself.  decode=False keeps min/max as undecoded u64 order
+    keys, so partials of chunks can merge exactly (the role of
     groupby.py:387-407)."""
+    if len(key_parts) == 1 and bases[0] == g_total:
+        codes, validity, offset, dtype = key_parts[0]
+        return grouped_aggregate(codes, g_total, sum_cols=sum_cols,
+                                 mm_cols=mm_cols, decode=decode, base=offset,
+                                 codes_valid=validity, codes_dtype=dtype)
     combined = None
-    for (codes, validity), base in zip(key_parts, bases):
-        digit = codes.to(torch.int32)
-        if validity is not None:
-            digit = torch.where(validity, digit, base - 1)
+    for (codes, validity, offset, dtype), base in zip(key_parts, bases):
+        digit = row_codes(codes, base, offset, validity, dtype) \
+            .to(torch.int32)
         combined = digit if combined is None else combined * base + digit
     return grouped_aggregate(combined.contiguous(), g_total,
                              sum_cols=sum_cols, mm_cols=mm_cols,
@@ -335,10 +346,9 @@ def _small_domain_plan(table: Table, key_cols, keys, aggs,
         g_total *= hi - lo + 1 + r.has_null
         if g_total > G_MAX:
             return None
-        digit, _ = rf.int_order_key(c.values, c.dtype, r)
-        parts.append(_Digits(digit, c.validity if r.has_null else None,
+        parts.append(_Digits(c.values, c.validity if r.has_null else None,
                              hi - lo + 1, r.has_null,
-                             np.arange(hi - lo + 1)))
+                             np.arange(hi - lo + 1), lo, c.dtype))
 
     def key_column(i, digit, is_null, sel):
         c, lo = key_cols[i], key_ranges[i].bounds[0]
@@ -367,18 +377,28 @@ def _k2_plan(table: Table, keys, aggs, parts: Sequence[_Digits],
     mm_slot = {}
 
     def count_slot(src, name):
-        if ("cnt", name) not in sum_slot:
+        """A column's count of valid rows: slot 0 when it has no
+        validity, its sum slot's count when it has one, else a
+        count-only slot."""
+        if ("cnt", name) in sum_slot:
+            return
+        if src.validity is None:
+            sum_slot[("cnt", name)] = 0
+        elif ("sum", name) in sum_slot:
+            sum_slot[("cnt", name)] = sum_slot[("sum", name)]
+        else:
             sum_slot[("cnt", name)] = len(sum_cols)
             sum_cols.append(SumCol(None, src.validity))
 
+    for a in aggs:                  # sum slots first: counts may share them
+        src = table.column(a.column)
+        if a.op in ("sum", "mean") and ("sum", a.column) not in sum_slot:
+            sum_slot[("sum", a.column)] = len(sum_cols)
+            sum_cols.append(SumCol(src.values, src.validity, src.dtype))
     for a in aggs:
         src = table.column(a.column)
         if a.op == "count":
             count_slot(src, a.column)
-        elif a.op in ("sum", "mean"):
-            if ("sum", a.column) not in sum_slot:
-                sum_slot[("sum", a.column)] = len(sum_cols)
-                sum_cols.append(SumCol(src.values, src.validity, src.dtype))
         elif a.op in ("min", "max"):
             key = ("mm", a.column)
             if key not in mm_slot:
@@ -395,7 +415,8 @@ def _k2_plan(table: Table, keys, aggs, parts: Sequence[_Digits],
 
     sums, counts, mms = _fast_agg_stage(
         [p.base for p in parts], g_total,
-        [(p.codes, p.validity) for p in parts], sum_cols, mm_cols)
+        [(p.codes, p.validity, p.offset, p.dtype) for p in parts], sum_cols,
+        mm_cols)
     occupancy = counts[0]
     device = occupancy.device
 
@@ -487,12 +508,10 @@ def _sort_stage(key_cols, key_ranges, n: int):
     starts are each group's first position in key order and first_idx
     its first row."""
     order, run_start, cap = _discover(key_cols, key_ranges, n)
-    iota = torch.arange(n, dtype=torch.int32, device=order.device)
-    (starts, first_idx), count = compact(run_start, [iota, order],
-                                         out_cap=cap)
+    (first_idx, starts), count = compact(run_start, [order], out_cap=cap,
+                                         positions=torch.int64)
     num_groups = int(count)     # the plan's one sync (output cardinality)
-    return (order, run_start, starts[:num_groups].to(torch.int64),
-            first_idx[:num_groups])
+    return order, run_start, starts[:num_groups], first_idx[:num_groups]
 
 
 def _sort_plan(table: Table, key_cols, keys, aggs, key_ranges,

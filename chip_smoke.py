@@ -1,14 +1,16 @@
 """Smoke run of the PyTorch port (arrow_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Drives the port's main path at BASELINE sizes and checks every kernel:
 
   1. needs torch.cuda; prints the card's name and power limit
   2. builds the CUDA kernels from arrow_tpu_torch/csrc (nvcc, sm_90a)
   3. K1 compaction against its plain version at 10M rows: every dtype
-     of the slice, selectivities 1/2, 0 and 1; bitwise on [:count]
-  4. K2 grouped aggregation against its plain version at 100M rows (the
+     of the slice, selectivities 1/2, 0 and 1, and the positions
+     output; bitwise on [:count]
+  4. K2 grouped aggregation against its plain version at 100M rows, as
+     the dictionary plan calls it (the key's codes and validity, the
      group_by's slots); sums, counts and order keys bitwise
   5. the config-1 query (WHERE x > 0: sum(y*2 + x), count(*)) through
      arrow_tpu_torch.pipeline at 10M rows, against a host float64 sum
@@ -17,23 +19,48 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
   7. group_by over a 1,000-value dictionary key at 100M rows against
      the plain-version route (the same table on the CPU)
   8. the kernels' launch counts over steps 5-7: both must be above 0
-  9. kernel and plain times from CUDA events (median of 5 after one
-     warm-up) at the main path's shapes
- 10. BASELINE config 4, 500M rows x 1K groups: Int64 keys h % 1000 and
+  9. kernel, plain and library times at the main path's shapes
+ 10. K1 at 100M rows with 0.1%, 2%, 50% and 100% kept: filter_table
+     over an Int64 and a Float64 column (it must launch K1; its output
+     equals `a[keep]`), then K1 over the same columns and the positions,
+     bitwise against its plain version and against PyTorch's
+     boolean-index compaction (`a[keep]`, `keep.nonzero()`), with the
+     times of all three
+ 11. the sort plan's K2 call site: 100M rows, keys (h % 1000) << 20 span
+     more than K2's 1,024 codes, so group_by sorts them and takes K2 for
+     the min/max of v over the 1,000 groups; it must launch K2 and
+     equal an independent computation; then K2 at its inputs bitwise
+     against its plain version
+ 12. BASELINE config 4, 500M rows x 1K groups: Int64 keys h % 1000 and
      values (h >> 32) % 1000 from bench.py's splitmix hash, made on the
      card; a resident group_by [sum, count, min, max] on the
      small-domain plan, held against an independent computation
      (torch.unique + index_add_ / scatter_reduce_, exact); it must
-     launch K2; then K2 at this shape against its plain version
- 11. config 4, 500M rows x 10M groups: a resident group_by on the sort
+     launch K2; then K2 at this shape (the Int64 key read as it is)
+     against its plain version
+ 13. config 4, 500M rows x 10M groups: a resident group_by on the sort
      plan (it must launch K1), against the same kind of independent
-     computation; then K1 at its run-start compaction against its plain
-     version
- 12. the same 10M-group aggregate through GroupByAccumulator fed the
+     computation; then K1 at its run-start compaction (the sorted
+     order and the positions) against its plain version
+ 14. the same 10M-group aggregate through GroupByAccumulator fed the
      125M-row chunks of bench.py:425-461 made on the card (K1 again),
-     against the independent computation of step 11
- 13. CUDA-event medians of the config-4 calls and the peak device
+     against the independent computation of step 13
+ 15. CUDA-event medians of the config-4 calls and the peak device
      memory of each; the tables are freed between steps
+
+`--profile` also traces the dictionary and config-4 group-bys with
+torch.profiler and prints, for each, the device time per kernel, the
+host wall time and the card's idle share.
+
+Times: `ms` is the median CUDA-event time of the wrapper's call (host
+work included), `kernel_ms` the kernel's device time per call from
+torch.profiler, `plain_ms` / `library_ms` the plain version's and the
+PyTorch call's; `bound_ms` is the bytes the call must move (each input
+read once, each output written once) over 3.35 TB/s, computed from this
+run's inputs.  `launches` is the kernel's count over the main-path run
+of the step that holds the call site: steps 5-7 for the config-1 and
+dictionary entries, the filter_table call at the same kept share for
+the sweep entries, steps 11, 12 and 13 for the others.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object of per-kernel results; the last line is the JSON result
@@ -42,23 +69,332 @@ JSON object of per-kernel results; the last line is the JSON result
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-CONFIG1_ROWS = 10_000_000          # BASELINE config 1 (bench.py:94-97)
-GROUPBY_ROWS = 100_000_000         # config 4's 500M, cut to fit the run
-GROUPS = 1_000                     # config 4's 1K-group cardinality
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, dense HBM3 peak
 SEED = 0
+CONFIG1_ROWS = 10_000_000          # BASELINE config 1 (bench.py:94-97)
+DICT_ROWS = 100_000_000            # the dictionary group-by, cut from 500M
+GROUPS = 1_000                     # config 4's 1K-group cardinality
 CONFIG4_ROWS = 500_000_000         # BASELINE config 4 (bench.py:395-491)
 CONFIG4_CHUNK = 125_000_000        # its streamed chunks (bench.py:425)
 CONFIG4_AGGS = ("sum", "count", "min", "max")      # bench.py:419-420
+SWEEP_ROWS = 100_000_000
+SWEEP_SHARES = (0.001, 0.02, 0.5, 1.0)
+SORT_K2_ROWS = 100_000_000         # keys (h % 1000) << 20: sort plan, G 1,000
 
+
+# ---- measurement ---------------------------------------------------------
+
+def time_ms(fn: Callable, reps: int = 5) -> float:
+    """Median CUDA-event time of `fn` over `reps` runs after a warm-up:
+    the call as its caller sees it, host work included."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def _profile(fn: Callable, reps: int):
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def kernel_ms(fn: Callable, name: str, reps: int = 3) -> float:
+    """Device time per call of the kernels whose name holds `name`, from
+    torch.profiler over `reps` calls after a warm-up."""
+    prof = _profile(fn, reps)
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if name in e.key)
+    return total / 1e3 / reps
+
+
+def profile_call(what: str, fn: Callable) -> None:
+    """Device time by kernel per call (torch.profiler over 3 calls), the
+    host wall median of 5 synced calls and the idle share between."""
+    prof = _profile(fn, 3)
+    per = sorted(((e.device_time_total / 3e3, e.key)
+                  for e in prof.key_averages() if e.device_time_total > 0),
+                 reverse=True)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls)
+    device = sum(ms for ms, _ in per)
+    print(f"profile {what}: " + json.dumps(
+        {"wall_ms": wall, "device_ms": device, "idle_share": 1 - device / wall,
+         "top": [[k[:60], round(ms, 4)] for ms, k in per[:12]]}), flush=True)
+
+
+def bound_ms(nbytes: int) -> float:
+    """The least time the card could take to move `nbytes`."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the distinct tensors given (None ignored)."""
+    seen = {}
+    for t in tensors:
+        if t is not None:
+            seen[(t.data_ptr(), t.numel())] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.splitlines()[0]
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+# ---- inputs --------------------------------------------------------------
+
+def _lsr(x, k):
+    """Logical shift right on int64 storage."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def splitmix(n: int, offset: int, device) -> torch.Tensor:
+    """bench.py's hash of i = arange(n) + offset + 7 (bench.py:408-414),
+    u64 bits in int64 storage."""
+    h = torch.arange(n, dtype=torch.int64, device=device) + (offset + 7)
+    h = (h ^ _lsr(h, 30)) * (0xBF58476D1CE4E5B9 - (1 << 64))
+    return (h ^ _lsr(h, 27)) * (0x94D049BB133111EB - (1 << 64))
+
+
+def config1_inputs():
+    """bench.py config1's generator: x in [-1000, 1000), y in [0, 1)."""
+    rng = np.random.default_rng(SEED)
+    return (rng.integers(-1000, 1000, CONFIG1_ROWS).astype(np.int64),
+            rng.random(CONFIG1_ROWS))
+
+
+def config4_table(n: int, groups: int, device, offset: int = 0,
+                  shift: int = 0):
+    """Config 4's table on the device (bench.py:408-417): Int64 k = h %
+    groups (unsigned) << shift, v = (h >> 32) % 1000, no nulls."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import PrimitiveColumn
+    from arrow_tpu_torch.core.table import Table
+    h = splitmix(n, offset, device)
+    k = ((_lsr(h, 1) % groups) * 2 + (h & 1)) % groups   # u64 h % groups
+    v = _lsr(h, 32) % 1000
+    del h
+    return Table([PrimitiveColumn(k << shift, dt.int64),
+                  PrimitiveColumn(v, dt.int64)],
+                 dt.Schema((dt.Field("k", dt.int64, nullable=False),
+                            dt.Field("v", dt.int64, nullable=False))))
+
+
+def dictionary_table(n: int, device):
+    """The dictionary group-by's table: an Int32 dictionary code column
+    (10% null) over 1,000 Utf8 values shuffled against the codes, and
+    v = hash % 1000 (bench.py's splitmix hash, 10% null)."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import (DictionaryColumn,
+                                             PrimitiveColumn, StringColumn)
+    from arrow_tpu_torch.core.table import Table
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    codes = torch.randint(0, GROUPS, (n,), generator=gen, device=device,
+                          dtype=torch.int32)
+    kvalid = torch.rand(n, generator=gen, device=device) >= 0.1
+    v = _lsr(splitmix(n, 0, device), 32) % 1000
+    vvalid = torch.rand(n, generator=gen, device=device) >= 0.1
+    perm = np.random.default_rng(SEED).permutation(GROUPS)
+    words = StringColumn.from_pylist([f"key{i:04d}" for i in perm])
+    return Table([DictionaryColumn(codes, words, kvalid),
+                  PrimitiveColumn(v, dt.int64, vvalid)],
+                 dt.Schema((dt.Field("k", dt.dictionary(dt.int32, dt.utf8)),
+                            dt.Field("v", dt.int64))))
+
+
+def sweep_table(dev, share: float):
+    """SWEEP_ROWS rows of an Int64 x and a Float64 y, and a mask keeping
+    `share` of them at random."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import PrimitiveColumn
+    from arrow_tpu_torch.core.table import Table
+    n = SWEEP_ROWS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    x = torch.randint(-2 ** 62, 2 ** 62, (n,), generator=gen, device=dev)
+    y = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    keep = torch.rand(n, generator=gen, device=dev) < share
+    return Table([PrimitiveColumn(x, dt.int64), PrimitiveColumn(y, dt.float64)],
+                 dt.Schema((dt.Field("x", dt.int64, nullable=False),
+                            dt.Field("y", dt.float64, nullable=False)))), keep
+
+
+# ---- call sites ----------------------------------------------------------
+
+@dataclass
+class Site:
+    """One call site of a kernel: `run` calls the kernel's wrapper as the
+    site calls it, `plain` its plain version and `library` one PyTorch
+    call computing the same function (None: there is none), all on the
+    same inputs; `bytes` is what the function must move."""
+    kernel: str                        # "compact" | "grouped_aggregate"
+    call_site: str
+    run: Callable
+    plain: Callable
+    library: Optional[Callable]
+    bytes: int
+
+    def measure(self) -> dict:
+        name = "compact_kernel" if self.kernel == "compact" \
+            else "groupagg_kernel"
+        return {"name": self.kernel, "call_site": self.call_site,
+                "ms": time_ms(self.run),
+                "kernel_ms": kernel_ms(self.run, name),
+                "plain_ms": time_ms(self.plain),
+                "library_ms": None if self.library is None
+                else time_ms(self.library),
+                "bound_ms": bound_ms(self.bytes), "bound_by": "bytes",
+                "bytes": self.bytes}
+
+
+def _compact_site(call_site, keep, arrays, cap, library) -> Site:
+    """K1 over `arrays` plus the kept rows' int64 positions."""
+    from arrow_tpu_torch.kernels import compact as kc
+    count = int(keep.sum())
+    full = keep.shape[0] if cap is None else cap
+    moved = keep.numel() + count * (
+        sum(a.element_size() for a in arrays) * 2 + 8)
+    return Site("compact", call_site,
+                lambda: kc.compact(keep, arrays, out_cap=cap,
+                                   positions=torch.int64),
+                lambda: kc.compact_plain(keep, arrays, full, torch.int64),
+                library, moved)
+
+
+def k1_config1(dev) -> Site:
+    """K1 as the config-1 query calls it: int64 x and float64 y, x > 0
+    (about half kept), no cap."""
+    from arrow_tpu_torch.kernels import compact as kc
+    x_np, y_np = config1_inputs()
+    x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+    keep = x > 0
+    count = int(keep.sum())
+    return Site("compact", f"config-1 filter, {CONFIG1_ROWS:,} rows",
+                lambda: kc.compact(keep, (x, y)),
+                lambda: kc.compact_plain(keep, (x, y), x.shape[0]),
+                lambda: (x[keep], y[keep]),
+                keep.numel() + count * 32)
+
+
+def k1_sweep(table, keep, share: float) -> Site:
+    """K1 over the sweep's x and y and the positions."""
+    x, y = table.column("x").values, table.column("y").values
+    return _compact_site(f"sweep, {keep.shape[0]:,} rows, {share:.1%} kept",
+                         keep, (x, y), None,
+                         lambda: (x[keep], y[keep], keep.nonzero()))
+
+
+def sort_plan_inputs(table):
+    """The sort plan's sort of one key column: (order, run_start, cap)
+    as ops/groupby.py::_discover gives them."""
+    from arrow_tpu_torch.ops import groupby as gb
+    keys = [table.column("k")]
+    return gb._discover(keys, gb._scan(keys), table.num_rows)
+
+
+def k1_run_starts(table) -> Site:
+    """K1 as the sort plan calls it at the run starts: the sorted order
+    and the positions, under the key domain's cap."""
+    order, run_start, cap = sort_plan_inputs(table)
+    return _compact_site(
+        f"sort-plan run starts, {table.num_rows:,} rows", run_start,
+        (order,), cap, lambda: (order[run_start], run_start.nonzero()))
+
+
+def k2_dictionary(table) -> Site:
+    """K2 as the dictionary plan calls it for [sum, count, min, max,
+    count_all] of v: the key's codes and validity as they are."""
+    from arrow_tpu_torch.kernels import groupagg as kg
+    k, v = table.column("k"), table.column("v")
+    G = len(k.values) + 1
+    sums = [kg.SumCol(None), kg.SumCol(v.values, v.validity, v.dtype)]
+    mms = [kg.MinMaxCol(v.values, v.validity, v.dtype)]
+    moved = nbytes(k.codes, k.validity, v.values, v.validity) \
+        + 8 * G * (1 + 2 * len(sums) + 2 * len(mms))
+    return Site("grouped_aggregate",
+                f"dictionary plan, {table.num_rows:,} rows x {G:,} codes",
+                lambda: kg.grouped_aggregate(k.codes, G, sums, mms,
+                                             decode=False,
+                                             codes_valid=k.validity),
+                lambda: kg.grouped_aggregate_plain(k.codes, G, sums, mms,
+                                                   codes_valid=k.validity),
+                None, moved)
+
+
+def k2_small_domain(table) -> Site:
+    """K2 as the small-domain plan calls it for config 4's [sum, count,
+    min, max] of v over keys 0..999: the Int64 key read as it is."""
+    from arrow_tpu_torch.kernels import groupagg as kg
+    k, v = table.column("k").values, table.column("v").values
+    sums, mms = [kg.SumCol(None), kg.SumCol(v)], [kg.MinMaxCol(v)]
+    moved = nbytes(k, v) + 8 * GROUPS * (1 + 2 * len(sums) + 2)
+    return Site("grouped_aggregate",
+                f"small-domain plan, {table.num_rows:,} rows x 1,000 codes",
+                lambda: kg.grouped_aggregate(k, GROUPS, sums, mms,
+                                             decode=False, base=0),
+                lambda: kg.grouped_aggregate_plain(k, GROUPS, sums, mms,
+                                                   base=0),
+                None, moved)
+
+
+def k2_sort_plan(table) -> Site:
+    """K2 as the sort plan calls it for the integer min/max over at most
+    1,024 groups: group ids of the sorted rows and v in key order."""
+    from arrow_tpu_torch.kernels import groupagg as kg
+    order, run_start, _ = sort_plan_inputs(table)
+    gid = torch.cumsum(run_start, 0, dtype=torch.int32) - 1
+    G = int(gid[-1]) + 1
+    vs = table.column("v").values[order]
+    del order, run_start
+    mms = [kg.MinMaxCol(vs, None, table.column("v").dtype)]
+    return Site("grouped_aggregate",
+                f"sort-plan min/max, {table.num_rows:,} rows x {G:,} groups",
+                lambda: kg.grouped_aggregate(gid, G, mm_cols=mms,
+                                             decode=False),
+                lambda: kg.grouped_aggregate_plain(gid, G, [], mms),
+                None, nbytes(gid, vs) + 16 * G)
+
+
+# ---- checks --------------------------------------------------------------
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
@@ -78,60 +414,31 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def _same_bits(a: torch.Tensor, b: torch.Tensor, what: str) -> float:
     err = _max_abs_err(a, b)
-    if not torch.equal(_bits(a), _bits(b)):
+    if a.dtype != b.dtype or not torch.equal(_bits(a), _bits(b)):
         raise AssertionError(f"{what}: kernel and plain version differ "
                              f"(max abs err {err})")
     return err
 
 
-def time_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of `fn` over `reps` runs after a warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
+def same_compaction(got, want, what: str) -> float:
+    """K1 outputs ((arrays, count) pairs) equal on [:count]."""
+    (g, g_n), (w, w_n) = got, want
+    count = int(w_n)
+    if int(g_n) != count or len(g) != len(w):
+        raise AssertionError(f"{what}: count {int(g_n)} != {count}")
+    return max([_same_bits(a[:count], b[:count], f"{what} {a.dtype}")
+                for a, b in zip(g, w)] or [0.0])
 
 
-def config1_inputs(n: int):
-    """bench.py config1's generator: x in [-1000, 1000), y in [0, 1)."""
-    rng = np.random.default_rng(SEED)
-    return rng.integers(-1000, 1000, n).astype(np.int64), rng.random(n)
-
-
-def _lsr(x, k):
-    """Logical shift right on int64 storage."""
-    return (x >> k) & ((1 << (64 - k)) - 1)
-
-
-def splitmix(n: int, offset: int, device) -> torch.Tensor:
-    """bench.py's hash of i = arange(n) + offset + 7 (bench.py:408-414),
-    u64 bits in int64 storage."""
-    h = torch.arange(n, dtype=torch.int64, device=device) + (offset + 7)
-    h = (h ^ _lsr(h, 30)) * (0xBF58476D1CE4E5B9 - (1 << 64))
-    return (h ^ _lsr(h, 27)) * (0x94D049BB133111EB - (1 << 64))
-
-
-def config4_table(n: int, groups: int, device, offset: int = 0):
-    """Config 4's table on the device (bench.py:408-417): Int64 k = h %
-    groups (unsigned), v = (h >> 32) % 1000, no nulls."""
-    from arrow_tpu_torch import dtypes as dt
-    from arrow_tpu_torch.core.column import PrimitiveColumn
-    from arrow_tpu_torch.core.table import Table
-    h = splitmix(n, offset, device)
-    k = ((_lsr(h, 1) % groups) * 2 + (h & 1)) % groups   # u64 h % groups
-    v = _lsr(h, 32) % 1000
-    del h
-    return Table([PrimitiveColumn(k, dt.int64), PrimitiveColumn(v, dt.int64)],
-                 dt.Schema((dt.Field("k", dt.int64, nullable=False),
-                            dt.Field("v", dt.int64, nullable=False))))
+def same_aggregates(got, want, what: str) -> float:
+    """K2 outputs (sums, counts, [(min keys, max keys)]) bitwise equal."""
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got[0] + got[1], want[0] + want[1])):
+        err = max(err, _same_bits(a, b, f"{what} sum/count {i}"))
+    for (a0, a1), (b0, b1) in zip(got[2], want[2]):
+        err = max(err, _same_bits(a0, b0, f"{what} min keys"))
+        err = max(err, _same_bits(a1, b1, f"{what} max keys"))
+    return err
 
 
 def independent_groupby(table):
@@ -169,49 +476,8 @@ def check_config4(out, want, what: str) -> None:
           f"equal to the independent computation", flush=True)
 
 
-def peak_gib() -> float:
-    return torch.cuda.max_memory_allocated() / 2 ** 30
-
-
-def groupby_table(n: int, device: torch.device):
-    """Config 4's shape on the device: an Int32 dictionary code column
-    (10% null) over 1,000 Utf8 values shuffled against the codes, and
-    v = hash % 1000 (bench.py's splitmix hash, 10% null)."""
-    from arrow_tpu_torch import dtypes as dt
-    from arrow_tpu_torch.core.column import (DictionaryColumn,
-                                             PrimitiveColumn, StringColumn)
-    from arrow_tpu_torch.core.table import Table
-
-    gen = torch.Generator(device=device)
-    gen.manual_seed(SEED)
-    codes = torch.randint(0, GROUPS, (n,), generator=gen, device=device,
-                          dtype=torch.int32)
-    kvalid = torch.rand(n, generator=gen, device=device) >= 0.1
-    h = splitmix(n, 0, device)
-    v = _lsr(h, 32) % 1000
-    del h
-    vvalid = torch.rand(n, generator=gen, device=device) >= 0.1
-    perm = np.random.default_rng(SEED).permutation(GROUPS)
-    words = StringColumn.from_pylist([f"key{i:04d}" for i in perm])
-    return Table([DictionaryColumn(codes, words, kvalid),
-                  PrimitiveColumn(v, dt.int64, vvalid)],
-                 dt.Schema((dt.Field("k", dt.dictionary(dt.int32, dt.utf8)),
-                            dt.Field("v", dt.int64))))
-
-
-def groupagg_slots(table):
-    """The K2 call group_by makes for [sum, count, min, max, count_all]
-    on v: occupancy, count(v) and sum(v) slots plus one min/max slot."""
-    from arrow_tpu_torch.kernels.groupagg import MinMaxCol, SumCol
-    k, v = table.column("k"), table.column("v")
-    codes = torch.where(k.validity, k.codes, len(k.values)).contiguous()
-    sums = [SumCol(None), SumCol(None, v.validity),
-            SumCol(v.values, v.validity, v.dtype)]
-    return codes, len(k.values) + 1, sums, [MinMaxCol(v.values, v.validity,
-                                                      v.dtype)]
-
-
 def check_compact(dev) -> float:
+    """Step 3."""
     from arrow_tpu_torch.kernels import compact as kc
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -231,37 +497,33 @@ def check_compact(dev) -> float:
     err = 0.0
     for p in (0.5, 0.0, 1.0):
         keep = torch.rand(n, generator=gen, device=dev) < p
-        got, got_n = kc.compact(keep, arrays)
-        want, want_n = kc.compact_plain(keep, arrays, n)
+        got = kc.compact(keep, arrays)
+        want = kc.compact_plain(keep, arrays, n)
         torch.cuda.synchronize()
-        count = int(want_n)
-        if int(got_n) != count:
-            raise AssertionError(f"K1 count {int(got_n)} != {count}")
-        for a, b in zip(got, want):
-            err = max(err, _same_bits(a[:count], b[:count],
-                                      f"K1 {a.dtype} p={p}"))
+        err = max(err, same_compaction(got, want, f"K1 p={p}"))
         print(f"K1 compact 10M x {len(arrays)} columns, selectivity {p}: "
-              f"count {count}, bitwise equal", flush=True)
-    return err
-
-
-def check_groupagg(table) -> float:
-    from arrow_tpu_torch.kernels import groupagg as kg
-    codes, G, sums, mms = groupagg_slots(table)
-    got = kg.grouped_aggregate(codes, G, sums, mms, decode=False)
-    want = kg.grouped_aggregate_plain(codes, G, sums, mms)
-    torch.cuda.synchronize()
-    err = 0.0
-    for i, (a, b) in enumerate(zip(got[0] + got[1], want[0] + want[1])):
-        err = max(err, _same_bits(a, b, f"K2 sum/count {i}"))
-    for (a0, a1), (b0, b1) in zip(got[2], want[2]):
-        err = max(err, _same_bits(a0, b0, "K2 min keys"))
-        err = max(err, _same_bits(a1, b1, "K2 max keys"))
-    print(f"K2 grouped_aggregate {codes.shape[0]:,} rows x {G} groups "
-          f"({len(sums)} sum + {len(mms)} min/max slots): bitwise equal",
+              f"count {int(want[1])}, bitwise equal", flush=True)
+    for positions in (torch.int32, torch.int64):
+        got = kc.compact(keep, arrays[:2], positions=positions)
+        want = kc.compact_plain(keep, arrays[:2], n, positions)
+        torch.cuda.synchronize()
+        err = max(err, same_compaction(got, want, f"K1 {positions}"))
+    print("K1 compact 10M, int32 and int64 positions: bitwise equal",
           flush=True)
     return err
 
+
+def check_site(site, same, what: str) -> float:
+    """A call site's kernel against its plain version, bitwise."""
+    got, want = site.run(), site.plain()
+    torch.cuda.synchronize()
+    err = same(got, want, what)
+    del got, want
+    print(f"{what}: kernel and plain version bitwise equal", flush=True)
+    return err
+
+
+# ---- steps ---------------------------------------------------------------
 
 def run_main_path(dev, x_np, y_np, table):
     """Steps 5-7 through the user-facing entry points."""
@@ -316,29 +578,6 @@ def groupby_table_to(table, device):
                  table.schema)
 
 
-def _k2_check(codes, G, sums, mms, what: str):
-    """K2 against its plain version on the same inputs: (max abs err,
-    kernel ms, plain ms)."""
-    from arrow_tpu_torch.kernels import groupagg as kg
-    got = kg.grouped_aggregate(codes, G, sums, mms, decode=False)
-    want = kg.grouped_aggregate_plain(codes, G, sums, mms)
-    torch.cuda.synchronize()
-    err = 0.0
-    for i, (a, b) in enumerate(zip(got[0] + got[1], want[0] + want[1])):
-        err = max(err, _same_bits(a, b, f"{what} sum/count {i}"))
-    for (a0, a1), (b0, b1) in zip(got[2], want[2]):
-        err = max(err, _same_bits(a0, b0, f"{what} min keys"))
-        err = max(err, _same_bits(a1, b1, f"{what} max keys"))
-    del got, want
-    print(f"{what}: {codes.shape[0]:,} rows x {G} codes ({len(sums)} sum + "
-          f"{len(mms)} min/max slots), kernel and plain version bitwise "
-          f"equal", flush=True)
-    ms = time_ms(lambda: kg.grouped_aggregate(codes, G, sums, mms,
-                                              decode=False))
-    plain = time_ms(lambda: kg.grouped_aggregate_plain(codes, G, sums, mms))
-    return err, ms, plain
-
-
 def _reset_counts():
     from arrow_tpu_torch.kernels import compact as kc, groupagg as kg
     torch.cuda.synchronize()
@@ -359,12 +598,72 @@ def _read_counts(what: str, must: str) -> dict:
     return launches
 
 
-def run_config4_1k(dev) -> dict:
-    """Step 10: 500M x 1K on the small-domain plan (one K2 pass)."""
-    from arrow_tpu_torch.kernels.groupagg import MinMaxCol, SumCol
+def _entry(site, launches: int, err: float) -> dict:
+    """The site's measurements as one entry of the kernels line."""
+    m = site.measure()
+    print(f"{site.kernel} at {site.call_site}: {m['ms']:.4f} ms "
+          f"(kernel {m['kernel_ms']:.4f} ms), plain {m['plain_ms']:.4f} ms"
+          f", library {m['library_ms']}, bound {m['bound_ms']:.4f} ms",
+          flush=True)
+    return {**m, "launches": launches, "max_abs_err": err}
+
+
+def run_k1_sweep(dev):
+    """Step 10."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import PrimitiveColumn
+    from arrow_tpu_torch.ops.filter import filter_table
+    entries = []
+    for share in SWEEP_SHARES:
+        table, keep = sweep_table(dev, share)
+        what = f"filter_table, {SWEEP_ROWS:,} rows, {share:.1%} kept"
+        _reset_counts()
+        out = filter_table(table, PrimitiveColumn(keep, dt.bool_))
+        launches = _read_counts(what, "compact")
+        for name in ("x", "y"):
+            _same_bits(out.column(name).values,
+                       table.column(name).values[keep], f"{what}: {name}")
+        del out
+        site = k1_sweep(table, keep, share)
+        err = check_site(site, same_compaction, f"K1 {site.call_site}")
+        got, lib = site.run(), site.library()
+        torch.cuda.synchronize()
+        (x_k, y_k, pos_k), count = got
+        c = int(count)
+        for a, b, name in ((x_k[:c], lib[0], "x"), (y_k[:c], lib[1], "y"),
+                           (pos_k[:c], lib[2].squeeze(1), "positions")):
+            _same_bits(a, b, f"K1 sweep {share} {name} against a[keep]")
+        del got, lib
+        entries.append(_entry(site, launches["compact"], err))
+        del site, table, keep
+    return entries
+
+
+def run_sort_plan_k2(dev) -> dict:
+    """Step 11."""
+    from arrow_tpu_torch.ops.groupby import AggSpec, group_by
+    table = config4_table(SORT_K2_ROWS, GROUPS, dev, shift=20)
+    want = independent_groupby(table)
+    aggs = [AggSpec("v", op) for op in CONFIG4_AGGS]
+    what = "sort plan with K2 min/max, 100M x 1K"
+    _reset_counts()
+    out = group_by(table, ["k"], aggs)
+    launches = _read_counts(what, "grouped_aggregate")
+    check_config4(out, want, what)
+    del out, want
+    gb_ms = time_ms(lambda: group_by(table, ["k"], aggs))
+    site = k2_sort_plan(table)
+    err = check_site(site, same_aggregates, f"K2 at {site.call_site}")
+    entry = _entry(site, launches["grouped_aggregate"], err)
+    print(f"{what}: group_by {gb_ms:.4f} ms", flush=True)
+    return entry
+
+
+def run_config4_1k(dev, profile: bool) -> dict:
+    """Step 12: 500M x 1K on the small-domain plan (one K2 pass)."""
     from arrow_tpu_torch.ops.groupby import AggSpec, group_by
     aggs = [AggSpec("v", op) for op in CONFIG4_AGGS]
-    table = config4_table(CONFIG4_ROWS, 1_000, dev)
+    table = config4_table(CONFIG4_ROWS, GROUPS, dev)
     want = independent_groupby(table)
     _reset_counts()
     t0 = time.perf_counter()
@@ -376,27 +675,25 @@ def run_config4_1k(dev) -> dict:
                              f"first call)")
     del out, want
     gb_ms = time_ms(lambda: group_by(table, ["k"], aggs))
-    # K2 as the small-domain plan launches it: digits k - min(k) over
-    # 1,000 codes; slots: occupancy, count(v), sum(v), min/max(v)
-    k, v = table.column("k").values, table.column("v").values
+    if profile:
+        profile_call("config 4 500M x 1K",
+                     lambda: group_by(table, ["k"], aggs))
+    k = table.column("k").values
     if int(k.min()) != 0 or int(k.max()) != 999:
         raise AssertionError("config 4 1K keys do not span [0, 999]")
-    codes = k.to(torch.int32)
-    err, ms, plain = _k2_check(
-        codes, 1_000, [SumCol(None), SumCol(None), SumCol(v, None)],
-        [MinMaxCol(v)], "K2 at config 4's small-domain plan")
-    del codes, table
+    site = k2_small_domain(table)
+    err = check_site(site, same_aggregates, f"K2 at {site.call_site}")
+    entry = _entry(site, launches["grouped_aggregate"], err)
+    del site, k, table
     print(f"config 4 500M x 1K: group_by {gb_ms:.4f} ms (CUDA events, "
-          f"median of 5); K2 {ms:.4f} ms vs plain {plain:.4f} ms; peak "
-          f"device memory {peak_gib():.2f} GiB", flush=True)
-    return {"launches": launches["grouped_aggregate"], "err": err, "ms": ms,
-            "plain_ms": plain, "groupby_ms": gb_ms}
+          f"median of 5); peak device memory {peak_gib():.2f} GiB",
+          flush=True)
+    return entry
 
 
-def run_config4_10m(dev):
-    """Steps 11-12: 500M x 10M resident on the sort plan, then streamed
+def run_config4_10m(dev, profile: bool) -> dict:
+    """Steps 13-14: 500M x 10M resident on the sort plan, then streamed
     through GroupByAccumulator."""
-    from arrow_tpu_torch.kernels import compact as kc
     from arrow_tpu_torch.ops import groupby as gb
     from arrow_tpu_torch.ops.groupby import (AggSpec, GroupByAccumulator,
                                              group_by)
@@ -419,31 +716,20 @@ def run_config4_10m(dev):
     del out
     resident_peak = peak_gib()
     gb_ms = time_ms(lambda: group_by(table, ["k"], aggs))
+    if profile:
+        profile_call("config 4 500M x 10M resident",
+                     lambda: group_by(table, ["k"], aggs))
 
-    # K1 as the sort plan launches it: row positions and first rows at
-    # the run starts of the sorted keys
-    keys = [table.column("k")]
-    order, run_start, cap = gb._discover(keys, gb._scan(keys), n)
-    arrays = (torch.arange(n, dtype=torch.int32, device=dev), order)
-    got, got_n = kc.compact(run_start, arrays, out_cap=cap)
-    plain, plain_n = kc.compact_plain(run_start, arrays, cap)
-    torch.cuda.synchronize()
-    count = int(plain_n)
-    if int(got_n) != count or count != groups_seen:
-        raise AssertionError(f"K1 run starts: count {int(got_n)}, plain "
-                             f"{count}, groups {groups_seen}")
-    err = max(_same_bits(a[:count], b[:count], "K1 run starts")
-              for a, b in zip(got, plain))
-    del got, plain
-    print(f"K1 at the sort plan's run starts: {n:,} rows, {count:,} kept "
-          f"({count / n:.1%}), out_cap {cap:,}; kernel and plain version "
-          f"bitwise equal", flush=True)
-    k1_ms = time_ms(lambda: kc.compact(run_start, arrays, out_cap=cap))
-    k1_plain = time_ms(lambda: kc.compact_plain(run_start, arrays, cap))
-    del order, run_start, arrays, keys, table
+    site = k1_run_starts(table)
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    count = int(site.run()[1])
+    if count != groups_seen:
+        raise AssertionError(f"K1 run starts: count {count}, groups "
+                             f"{groups_seen}")
+    entry = _entry(site, launches["compact"], err)
+    del site, table
     print(f"config 4 500M x 10M: group_by {gb_ms:.4f} ms (CUDA events, "
-          f"median of 5); K1 {k1_ms:.4f} ms vs plain {k1_plain:.4f} ms",
-          flush=True)
+          f"median of 5)", flush=True)
 
     def stream():
         acc = GroupByAccumulator(["k"], aggs)
@@ -454,9 +740,9 @@ def run_config4_10m(dev):
 
     _reset_counts()
     out = stream()
-    stream_launches = _read_counts(
-        f"config 4 500M x 10M GroupByAccumulator ({CONFIG4_CHUNK:,}-row "
-        "chunks made on the card)", "compact")
+    _read_counts(f"config 4 500M x 10M GroupByAccumulator "
+                 f"({CONFIG4_CHUNK:,}-row chunks made on the card)",
+                 "compact")
     check_config4(out, want, "config 4 500M x 10M GroupByAccumulator")
     stream_peak = peak_gib()
     del out, want
@@ -470,25 +756,27 @@ def run_config4_10m(dev):
           f"clock, second run, chunk generation included); peak device "
           f"memory {stream_peak:.2f} GiB (resident group_by: "
           f"{resident_peak:.2f} GiB)", flush=True)
-    return {"launches": launches["compact"], "err": err, "ms": k1_ms,
-            "plain_ms": k1_plain, "groupby_ms": gb_ms,
-            "stream_launches": stream_launches["compact"]}
+    return entry
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace the group-bys with torch.profiler")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "runs the port on a CUDA card", file=sys.stderr)
         return 2
+    from arrow_tpu_torch import pipeline
     from arrow_tpu_torch.kernels import compact as kc, groupagg as kg, native
     from arrow_tpu_torch.ops.groupby import group_by
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
+    smi = card()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    print(smi.splitlines()[0], flush=True)
+    print(smi, flush=True)
 
     t0 = time.perf_counter()
     lib = native.library()
@@ -499,11 +787,13 @@ def main() -> int:
             print("  " + line.strip())
 
     k1_err = check_compact(dev)
-    table = groupby_table(GROUPBY_ROWS, dev)
+    table = dictionary_table(DICT_ROWS, dev)
     print(f"group-by table: {table.num_rows:,} rows on {dev}", flush=True)
-    k2_err = check_groupagg(table)
+    k2_site = k2_dictionary(table)
+    k2_err = check_site(k2_site, same_aggregates, f"K2 at "
+                        f"{k2_site.call_site}")
 
-    x_np, y_np = config1_inputs(CONFIG1_ROWS)
+    x_np, y_np = config1_inputs()
     torch.cuda.reset_peak_memory_stats()
     kc.compact.launches = 0
     kg.grouped_aggregate.launches = 0
@@ -533,51 +823,38 @@ def main() -> int:
     print(f"group_by to_pydict equal to the plain route ({out.num_rows} "
           f"groups, first {got_d['k'][:2]} -> {got_d['v_sum'][:2]})",
           flush=True)
+    del host, want, got_d, want_d
 
-    # times at the main path's shapes
+    # step 9: times at the main path's shapes
+    entries = [_entry(k1_config1(dev), launches["compact"], k1_err),
+               _entry(k2_site, launches["grouped_aggregate"], k2_err)]
     x = torch.from_numpy(x_np).to(dev)
     y = torch.from_numpy(y_np).to(dev)
-    keep = x > 0
-    k1_ms = time_ms(lambda: kc.compact(keep, (x, y)))
-    k1_plain = time_ms(lambda: kc.compact_plain(keep, (x, y), x.shape[0]))
-    codes, G, sums, mms = groupagg_slots(table)
-    k2_ms = time_ms(lambda: kg.grouped_aggregate(codes, G, sums, mms,
-                                                 decode=False))
-    k2_plain = time_ms(lambda: kg.grouped_aggregate_plain(codes, G, sums,
-                                                          mms))
-    from arrow_tpu_torch import pipeline
     q_ms = time_ms(lambda: pipeline.query(x, y, 0))
     gb_ms = time_ms(lambda: group_by(table, ["k"], aggs))
-    print(f"times (CUDA events, median of 5): K1 {k1_ms:.4f} ms vs plain "
-          f"{k1_plain:.4f} ms; K2 {k2_ms:.4f} ms vs plain {k2_plain:.4f} ms;"
-          f" config-1 query {q_ms:.4f} ms; group_by 100M {gb_ms:.4f} ms",
-          flush=True)
+    print(f"times (CUDA events, median of 5): config-1 query {q_ms:.4f} ms;"
+          f" group_by 100M {gb_ms:.4f} ms", flush=True)
+    if args.profile:
+        profile_call("dictionary group_by, 100M",
+                     lambda: group_by(table, ["k"], aggs))
+    del x, y, k2_site, table, out
 
-    del x, y, keep, codes, sums, mms, table, out, host, want
-    c4_1k = run_config4_1k(dev)
-    c4_10m = run_config4_10m(dev)
+    entries += run_k1_sweep(dev)
+    entries.append(run_sort_plan_k2(dev))
+    entries.append(run_config4_1k(dev, args.profile))
+    entries.append(run_config4_10m(dev, args.profile))
 
-    k1 = {"name": "compact", "route": "cuda",
-          "source": "arrow_tpu_torch/csrc/compact.cu",
-          "replaces": "arrow_tpu/kernels/compact.py:46"}
-    k2 = {"name": "grouped_aggregate", "route": "cuda",
-          "source": "arrow_tpu_torch/csrc/groupagg.cu",
-          "replaces": "arrow_tpu/kernels/groupagg.py:38"}
-    kernels = [
-        {**k1, "call_site": "config-1 filter, 10M rows",
-         "launches": launches["compact"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
-        {**k2, "call_site": "dictionary group_by, 100M rows x 1,001 codes",
-         "launches": launches["grouped_aggregate"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
-        {**k1, "call_site": "sort-plan run starts, config 4 500M x 10M",
-         "launches": c4_10m["launches"], "max_abs_err": c4_10m["err"],
-         "ms": c4_10m["ms"], "plain_ms": c4_10m["plain_ms"]},
-        {**k2, "call_site": "small-domain plan, config 4 500M x 1K",
-         "launches": c4_1k["launches"], "max_abs_err": c4_1k["err"],
-         "ms": c4_1k["ms"], "plain_ms": c4_1k["plain_ms"]},
-    ]
-    print(smi.splitlines()[0])
+    sources = {
+        "compact": {"route": "cuda",
+                    "source": "arrow_tpu_torch/csrc/compact.cu",
+                    "replaces": "arrow_tpu/kernels/compact.py:46"},
+        "grouped_aggregate": {"route": "cuda",
+                              "source": "arrow_tpu_torch/csrc/groupagg.cu",
+                              "replaces": "arrow_tpu/kernels/groupagg.py:38"},
+    }
+    kernels = [{**e, **sources[e["name"]]} for e in entries]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -231,3 +231,85 @@ def test_kernel_matches_plain_on_cuda(cuda_device, n):
     assert int(got_n) == count
     for g_, w_ in zip(got, want):
         assert torch.equal(g_[:count], w_[:count])
+
+
+@pytest.mark.parametrize("positions", [torch.int32, torch.int64])
+@pytest.mark.parametrize("p", [0.0, 0.02, 0.5, 1.0])
+def test_positions_match_reference_over_an_iota(rng, positions, p):
+    """K1's positions output against the reference's Pallas kernel
+    (interpret mode) compacting an iota beside a column."""
+    a = _array(rng, "int32")
+    keep = _keep(rng, p)
+    iota = np.arange(N, dtype=np.int32)
+    want, want_n = ref_compact(jnp.asarray(keep),
+                               [jnp.asarray(a), jnp.asarray(iota)])
+    (got_a, got_pos), got_n = kc.compact(torch.from_numpy(keep),
+                                         [torch.from_numpy(a)],
+                                         positions=positions)
+    count = int(want_n)
+    assert int(got_n) == count
+    assert got_pos.dtype == positions and got_pos.shape == (N,)
+    _check_compacted([got_a], [want[0]], count)
+    assert (got_pos[:count].numpy() == np.asarray(want[1])[:count]).all()
+
+
+def test_positions_alone_under_out_cap(rng):
+    """A batch of no column but the positions, shrunk by out_cap, as the
+    group-by's run starts ask for them; a cap below the count raises."""
+    keep = _keep(rng, 0.1)
+    count = int(keep.sum())
+    (pos,), n = kc.compact(torch.from_numpy(keep), [], out_cap=count + 5,
+                           positions=torch.int64)
+    assert pos.shape == (count + 5,) and int(n) == count
+    assert (pos[:count].numpy() == np.flatnonzero(keep)).all()
+    with pytest.raises(ArrowInvalid):
+        kc.compact(torch.from_numpy(keep), [], out_cap=count - 1,
+                   positions=torch.int64)
+    with pytest.raises(ArrowInvalid):
+        kc.compact(torch.from_numpy(keep), [], positions=torch.int16)
+
+
+@pytest.mark.parametrize("n", [16_385, 65_535, 65_536, 65_537, 50_000_017])
+@pytest.mark.parametrize("shift", [0, 1], ids=["aligned", "unaligned"])
+def test_one_pass_kernel_with_positions_on_cuda(cuda_device, n, shift):
+    """Part and tile edges (16,384 rows a part, 65,536 a tile), a keep
+    mask whose address is not 16-byte aligned, and 50M rows: 763 tiles
+    whose look-back spans many waves of blocks; both position types."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(n + shift)
+    keep = (torch.rand(n + shift, generator=g, device=cuda_device)
+            < 0.3)[shift:]
+    arrays = [torch.randint(-2 ** 62, 2 ** 62, (n,), generator=g,
+                            device=cuda_device),
+              torch.randn(n, generator=g, device=cuda_device,
+                          dtype=torch.float16)]
+    for positions in (torch.int32, torch.int64):
+        before = kc.compact.launches
+        got, got_n = kc.compact(keep, arrays, positions=positions)
+        want, want_n = kc.compact_plain(keep, arrays, n, positions)
+        torch.cuda.synchronize()
+        assert kc.compact.launches == before + 1
+        count = int(want_n)
+        assert int(got_n) == count
+        for g_, w_ in zip(got, want):
+            assert g_.dtype == w_.dtype and torch.equal(g_[:count],
+                                                        w_[:count])
+
+
+@pytest.mark.parametrize("p", [0.001, 0.02, 1.0])
+def test_out_cap_below_count_raises_on_cuda(cuda_device, p):
+    """The kernel drops writes past the cap and the wrapper raises; at
+    the exact cap the outputs equal the plain version's."""
+    n = 1_000_003
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(7)
+    keep = torch.rand(n, generator=g, device=cuda_device) < p
+    a = torch.randint(0, 100, (n,), generator=g, device=cuda_device,
+                      dtype=torch.int32)
+    count = int(keep.sum())
+    with pytest.raises(ArrowInvalid):
+        kc.compact(keep, [a], out_cap=count - 1, positions=torch.int64)
+    got, _ = kc.compact(keep, [a], out_cap=count, positions=torch.int64)
+    want, _ = kc.compact_plain(keep, [a], count, torch.int64)
+    for g_, w_ in zip(got, want):
+        assert torch.equal(g_, w_)

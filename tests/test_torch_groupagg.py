@@ -208,8 +208,8 @@ def test_rejects_outside_contract(bad):
     elif bad == "mm-bool":
         args = (codes, 2)
         kw = {"mm_cols": [kg.MinMaxCol(torch.ones(4, dtype=torch.bool))]}
-    else:
-        args, kw = (codes.to(torch.int64), 2), {}
+    else:                         # keys of any integer width are codes
+        args, kw = (codes.to(torch.float32), 2), {}
     with pytest.raises(ArrowInvalid):
         kg.grouped_aggregate(*args, **kw)
 
@@ -245,6 +245,108 @@ def test_kernel_matches_plain_on_cuda(cuda_device, G):
     want = kg.grouped_aggregate_plain(codes, G, sums, mms)
     torch.cuda.synchronize()
     assert kg.grouped_aggregate.launches == before + 1
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
+    for (a0, a1), (b0, b1) in zip(got[2], want[2]):
+        assert torch.equal(a0, b0) and torch.equal(a1, b1)
+
+
+KEY_TYPES = ["int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
+             "uint64"]
+
+
+def _keys_near(rng, d, base, G, n=N):
+    """Keys of numpy dtype d in [base - 3, base + G + 3], clipped to the
+    type: some below the base, some past the last code."""
+    info = np.iinfo(d)
+    lo, hi = max(info.min, base - 3), min(info.max, base + G + 3)
+    return rng.integers(lo, hi, n, dtype=d, endpoint=True)
+
+
+@pytest.mark.parametrize("nulls", [False, True], ids=["valid", "nulls"])
+@pytest.mark.parametrize("key", KEY_TYPES)
+def test_key_width_base_and_nulls_match_reference(rng, key, nulls):
+    """K2 reading a key column at its own width: code = key - base, null
+    keys take the last code, codes outside [0, G) drop their rows.  The
+    reference runs on the same codes rebased to int32 by numpy."""
+    G = 37
+    d = np.dtype(key)
+    base = int(np.iinfo(d).max) - 30 if d.kind == "u" \
+        else int(np.iinfo(d).min) + 2
+    keys = _keys_near(rng, d, base, G)
+    kvalid = rng.random(N) > 0.2 if nulls else None
+    codes = np.array([int(k) - base for k in keys])
+    if nulls:
+        codes = np.where(kvalid, codes, G - 1)
+    codes = np.where((codes >= 0) & (codes < G), codes, -1).astype(np.int32)
+    vals = _values(rng, "int64")
+    small = _values(rng, "int16")
+    valid = rng.random(N) > 0.25
+    want = ref_ga.grouped_aggregate(
+        _j(codes), G, [ref_ga.SumCol(_j(vals), _j(valid)),
+                       ref_ga.SumCol(_j(small), None)],
+        [ref_ga.MinMaxCol(_j(small), _j(valid), True, True)], decode=True)
+    got = kg.grouped_aggregate(
+        _t(keys), G, [kg.SumCol(_t(vals), _t(valid)), kg.SumCol(_t(small))],
+        [kg.MinMaxCol(_t(small), _t(valid))], base=base,
+        codes_valid=_t(kvalid), codes_dtype=tdt.from_numpy_dtype(d))
+    _assert_sums_counts(got, want)
+    for g, w in zip(got[2][0], want[2][0]):
+        assert (g.numpy() == np.asarray(w)).all()
+
+
+def test_row_codes_of_bool_keys():
+    """Bool keys are 1-byte unsigned codes: 0/1 less the base."""
+    keys = torch.tensor([True, False, True, True])
+    valid = torch.tensor([True, True, False, True])
+    assert kg.row_codes(keys, 3, 0, valid).tolist() == [1, 0, 2, 1]
+    assert kg.row_codes(keys, 2, 1).tolist() == [0, -1, 0, 0]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("key", ["int8", "uint8", "int16", "int32", "int64",
+                                 "bool"])
+@pytest.mark.parametrize("G", [1, 1024])
+def test_key_width_and_base_on_cuda(cuda_device, G, key, aligned):
+    """Every key width with a base and key nulls, every value width and
+    class, at G = 1 (every row on one group) and G = 1,024; unaligned
+    inputs take the kernel's scalar loads."""
+    n = 300_007
+    s = 0 if aligned else 1
+    rng = np.random.default_rng(G)
+    dev = cuda_device
+
+    def cut(a):
+        """`a` on the card, from an element in when unaligned."""
+        t = _t(np.concatenate([a[:1], a]) if s else a).to(dev)
+        return t[s:]
+
+    if key == "bool":
+        keys, base, kd = rng.random(n) < 0.5, 1 - (G > 1), tdt.bool_
+    else:
+        d = np.dtype(key)
+        base = int(np.iinfo(d).min) + 1 if d.kind == "i" else 3
+        keys, kd = _keys_near(rng, d, base, G, n), tdt.from_numpy_dtype(d)
+    kvalid = rng.random(n) > 0.1
+    valid = rng.random(n) > 0.2
+    sums, mms = [kg.SumCol(None), kg.SumCol(None, cut(valid))], []
+    for name in ["int8", "uint8", "int16", "uint16", "int32", "uint32",
+                 "int64", "uint64"]:
+        v = cut(_values(rng, name, n))
+        dt_ = tdt.from_numpy_dtype(np.dtype(name))
+        sums.append(kg.SumCol(v, cut(valid), dt_))
+        mms.append(kg.MinMaxCol(v, None, dt_))
+    for name in ["float16", "float32", "float64"]:
+        v = _values(rng, name, n) if name != "float64" \
+            else rng.normal(0, 1, n)
+        mms.append(kg.MinMaxCol(cut(v), cut(valid)))
+    args = (cut(keys), G, sums, mms)
+    kw = dict(base=base, codes_valid=cut(kvalid), codes_dtype=kd)
+    before = kg.grouped_aggregate.launches
+    got = kg.grouped_aggregate(*args, decode=False, **kw)
+    want = kg.grouped_aggregate_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert kg.grouped_aggregate.launches > before
     for a, b in zip(got[0] + got[1], want[0] + want[1]):
         assert torch.equal(a, b)
     for (a0, a1), (b0, b1) in zip(got[2], want[2]):

@@ -14,13 +14,15 @@ import torch
 
 import arrow_tpu as at
 import arrow_tpu_torch as att
+from arrow_tpu.ops.groupby import AggSpec as RefAggSpec
 from arrow_tpu.ops.groupby import float_group_sums as ref_float_group_sums
+from arrow_tpu.ops.groupby import group_by as ref_group_by
 from arrow_tpu.ops.groupby import segment_aggregate as ref_segment_aggregate
 from arrow_tpu.ops.row_format import SortOptions, lexsort_indices_fused
 from arrow_tpu_torch.errors import (ArrowInvalid, ArrowNotImplementedError,
                                     ArrowTypeError)
 from arrow_tpu_torch.kernels import compact as kc, groupagg as kg
-from arrow_tpu_torch.ops import row_format as rf
+from arrow_tpu_torch.ops import groupby as gb, row_format as rf
 from arrow_tpu_torch.ops.concat import concat, concat_tables
 from arrow_tpu_torch.ops.groupby import (AggSpec, GroupByAccumulator,
                                          float_group_sums, group_by,
@@ -173,6 +175,33 @@ def test_segment_aggregate_matches_reference(rng, op, dtype):
     got = got.view(want.dtype) if got.dtype.itemsize == want.dtype.itemsize \
         else got
     assert (got == want).all()
+
+
+@pytest.mark.parametrize("nulls", [0.0, 0.1], ids=["no-nulls", "nulls"])
+@pytest.mark.parametrize("key", ["int16", "dict"])
+def test_k2_plan_counts_share_slots(rng, monkeypatch, key, nulls):
+    """count(v) reads slot 0 (the row count) when v has no validity and
+    v's sum slot when it has one: the K2 call holds one sum slot fewer
+    than a slot per count would, and the outputs equal the
+    reference's."""
+    n = 2000
+    k = dict_column(rng, n, [f"w{i}" for i in range(30)]) if key == "dict" \
+        else rand_column(rng, key, n, small=True)
+    t = at.Table.from_pydict({"k": k,
+                              "v": rand_column(rng, "int64", n, nulls=nulls)})
+    ops = ["count", "sum", "min", "max", "count_all", "mean"]
+    seen = []
+    real = gb.grouped_aggregate
+
+    def spy(codes, G, sum_cols=(), mm_cols=(), *args, **kw):
+        seen.append(len(sum_cols))
+        return real(codes, G, sum_cols, mm_cols, *args, **kw)
+
+    monkeypatch.setattr(gb, "grouped_aggregate", spy)
+    got = group_by(port_table(t), ["k"], [AggSpec("v", op) for op in ops])
+    assert seen == [2]          # rows, sum(v); no count-only slot
+    assert_tables_equal(got, ref_group_by(t, ["k"], [RefAggSpec("v", op)
+                                                     for op in ops]))
 
 
 # ---- on the card -------------------------------------------------------------

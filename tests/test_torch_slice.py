@@ -191,7 +191,7 @@ def test_encoded_partials_merge_exactly(rng):
     def stage(lo, hi, decode):
         sl = slice(lo, hi)
         return _fast_agg_stage(
-            sizes, sizes[0] + 1, [(k.codes[sl], k.validity[sl])],
+            sizes, sizes[0] + 1, [(k.codes[sl], k.validity[sl], 0, None)],
             [kg.SumCol(v.values[sl], v.validity[sl], tdt.int64)],
             [kg.MinMaxCol(v.values[sl], v.validity[sl], tdt.int64)],
             decode=decode)
