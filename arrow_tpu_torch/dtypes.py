@@ -1,9 +1,11 @@
 """Logical type system of the port (counterpart of arrow_tpu/dtypes.py).
 
 The same logical-type vocabulary as the reference, restricted to what
-the port's first slice carries: bool, the signed and unsigned integers,
-float16/32/64, utf8 and dictionary.  `to_torch` takes the place of
-`to_jax` (arrow_tpu/dtypes.py:142).
+the port's slices carry: bool, the signed and unsigned integers,
+float16/32/64, the temporal types (date32/64, timestamp, time32/64,
+duration and the year_month and day_time intervals: integer storage
+plus unit and timezone metadata), utf8 and dictionary.  `to_torch`
+takes the place of `to_jax` (arrow_tpu/dtypes.py:142).
 
 Unsigned storage: torch's uint16/uint32/uint64 reject `+`, `<`, `>>`
 and `max`, so Arrow's unsigned types live on signed storage of the same
@@ -23,7 +25,9 @@ import torch
 __all__ = [
     "DataType", "bool_", "int8", "int16", "int32", "int64",
     "uint8", "uint16", "uint32", "uint64", "float16", "float32", "float64",
-    "utf8", "dictionary", "Field", "Schema", "from_numpy_dtype",
+    "utf8", "date32", "date64", "timestamp", "time32", "time64",
+    "duration", "interval", "dictionary", "Field", "Schema",
+    "from_numpy_dtype",
     "torch_dtype_name", "widen", "storage_int",
 ]
 
@@ -37,6 +41,8 @@ class DataType:
     value_type: Optional["DataType"] = None   # dictionary value type
     # dictionary: values are sorted and code order IS value order
     ordered: Optional[bool] = None
+    unit: Optional[str] = None                # temporal unit
+    tz: Optional[str] = None                  # timestamp timezone
 
     @property
     def is_integer(self) -> bool:
@@ -59,6 +65,10 @@ class DataType:
         return self.is_integer or self.is_floating
 
     @property
+    def is_temporal(self) -> bool:
+        return self.name in _TEMPORAL_NAMES
+
+    @property
     def is_boolean(self) -> bool:
         return self.name == "bool"
 
@@ -69,13 +79,15 @@ class DataType:
     @property
     def is_primitive(self) -> bool:
         """Fixed-width, single-tensor representable."""
-        return self.is_numeric or self.is_boolean
+        return self.is_numeric or self.is_boolean or self.is_temporal
 
     def to_torch(self) -> torch.dtype:
         """torch dtype of the physical value tensor (signed storage for
         uint16/32/64)."""
         if self.name == "dictionary":
             return self.index_type.to_torch()
+        if self.name == "interval":
+            return _INTERVAL_TORCH[self.unit]
         m = _TORCH_DTYPE.get(self.name)
         if m is None:
             raise TypeError(f"{self} has no single-tensor physical dtype")
@@ -85,6 +97,8 @@ class DataType:
         """Logical numpy dtype: the host view of the storage bits."""
         if self.name == "dictionary":
             return self.index_type.to_numpy()
+        if self.is_temporal:
+            return self.storage_numpy()
         if self.name not in _TORCH_DTYPE:
             raise TypeError(f"{self} has no single-tensor physical dtype")
         return np.dtype(self.name)
@@ -100,6 +114,10 @@ class DataType:
     def __repr__(self) -> str:
         if self.name == "dictionary":
             return f"dictionary<{self.index_type!r}, {self.value_type!r}>"
+        if self.name == "timestamp":
+            return f"timestamp[{self.unit}{', tz=' + self.tz if self.tz else ''}]"
+        if self.unit is not None:
+            return f"{self.name}[{self.unit}]"
         return self.name
 
 
@@ -114,7 +132,16 @@ _TORCH_DTYPE = {
     "uint64": torch.int64,
     "float16": torch.float16, "float32": torch.float32,
     "float64": torch.float64,
+    "date32": torch.int32, "date64": torch.int64, "timestamp": torch.int64,
+    "time32": torch.int32, "time64": torch.int64, "duration": torch.int64,
 }
+
+# interval storage by unit: year_month i32 months, day_time i64
+# (days << 32 | millis); month_day_nano is two tensors (ROADMAP A7)
+_INTERVAL_TORCH = {"year_month": torch.int32, "day_time": torch.int64}
+
+_TEMPORAL_NAMES = ("date32", "date64", "timestamp", "time32", "time64",
+                   "duration", "interval")
 
 bool_ = DataType("bool")
 int8 = DataType("int8")
@@ -129,6 +156,40 @@ float16 = DataType("float16")
 float32 = DataType("float32")
 float64 = DataType("float64")
 utf8 = DataType("utf8")
+date32 = DataType("date32")
+date64 = DataType("date64")
+
+
+def _unit(name: str, unit: str, units) -> str:
+    if unit not in units:
+        from .errors import ArrowNotImplementedError
+        raise ArrowNotImplementedError(f"{name}[{unit}] (units: {units})")
+    return unit
+
+
+def timestamp(unit: str = "us", tz: Optional[str] = None) -> DataType:
+    return DataType("timestamp", unit=_unit("timestamp", unit,
+                                            ("s", "ms", "us", "ns")), tz=tz)
+
+
+def time32(unit: str = "s") -> DataType:
+    return DataType("time32", unit=_unit("time32", unit, ("s", "ms")))
+
+
+def time64(unit: str = "us") -> DataType:
+    return DataType("time64", unit=_unit("time64", unit, ("us", "ns")))
+
+
+def duration(unit: str = "us") -> DataType:
+    return DataType("duration", unit=_unit("duration", unit,
+                                           ("s", "ms", "us", "ns")))
+
+
+def interval(unit: str) -> DataType:
+    """Interval(YearMonth | DayTime); MonthDayNano's 128-bit layout joins
+    with ROADMAP A7."""
+    return DataType("interval", unit=_unit("interval", unit,
+                                           ("year_month", "day_time")))
 
 _BY_NUMPY = {d.name: d for d in (int8, int16, int32, int64, uint8, uint16,
                                  uint32, uint64, float16, float32, float64)}

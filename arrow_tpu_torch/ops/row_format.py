@@ -1,7 +1,7 @@
-"""Order-preserving key encoding for sorts and group-bys (counterpart of
-arrow_tpu/ops/row_format.py: key_kind, key_parts, dictionary_value_ranks,
-_encode_one_traced and lexsort_order_traced, row_format.py:92,375-400,
-483-634,703-717).
+"""Order-preserving key encoding for sorts, group-bys and joins
+(counterpart of arrow_tpu/ops/row_format.py: key_kind, key_parts,
+dictionary_value_ranks, encode_value_key, _encode_one_traced and
+lexsort_order_traced, row_format.py:64-163,375-400,483-634,703-717).
 
 Each key column becomes a group of integer sort keys, most significant
 first (the reference's u8 class keys plus a value key at native width):
@@ -23,8 +23,13 @@ first (the reference's u8 class keys plus a value key at native width):
 they fit in 31 bits) while their bits fit in 63, and sorts the words
 with stable passes from the last word to the first.
 
-String, REE, decimal and nested keys raise ArrowNotImplementedError:
-those layouts join with ROADMAP A7.
+`encode_value_key` is the join's key: one u64 per row (in int64
+storage) whose unsigned order is the value order, with no null class
+and no float folding: floats map through f64 to their IEEE totalOrder
+bits, so -0.0 and +0.0 differ and NaNs compare by their bits.
+
+String, REE, decimal and nested sort and group keys raise
+ArrowNotImplementedError: those layouts join with ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ from ..errors import ArrowNotImplementedError
 
 __all__ = ["SortKey", "KeyRange", "dictionary_value_ranks", "key_kind",
            "key_parts", "encode_keys", "lexsort_order", "sort_keys",
-           "float_order_key", "int_order_key"]
+           "float_order_key", "int_order_key", "encode_value_key"]
 
 _SIGN = -(1 << 63)                 # int64 bits of 1 << 63
 _WORD_BITS = 63                    # a packed word stays a non-negative int64
@@ -166,6 +171,40 @@ def int_order_key(values: torch.Tensor, d: dt.DataType,
     if width == 64:
         return w ^ _SIGN, 64
     return w + (1 << (width - 1)), width
+
+
+def encode_value_key(col: Column
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(u64 order key per row in int64 storage, effective validity)
+    (row_format.py:133-163).  Signed integers and temporal values are
+    sign-flipped, unsigned and bool zero-extended, an interval[day_time]
+    flips both 32-bit halves, floats take f64 totalOrder bits; a
+    dictionary maps through its value ranks, its null entries folding
+    into the validity; a StringColumn is ranked on the fly."""
+    if isinstance(col, PrimitiveColumn):
+        d, v = col.dtype, col.values
+        if d.is_floating:
+            return float_order_key(v.to(torch.float64))[0], col.validity
+        w = dt.widen(v, d)
+        if d.is_boolean or d.is_unsigned_integer:
+            return w, col.validity
+        if d.name == "interval" and d.unit == "day_time":
+            return w ^ (0x80000000 | _SIGN), col.validity
+        return w ^ _SIGN, col.validity
+    if isinstance(col, DictionaryColumn):
+        ranks, dict_null = dictionary_value_ranks(col.values)
+        codes = col.codes.to(torch.int64)
+        key = torch.from_numpy(ranks.view(np.int64)).to(col.device)[codes]
+        validity = col.validity
+        if dict_null.any():
+            ev = torch.from_numpy(~dict_null).to(col.device)[codes]
+            validity = ev if validity is None else validity & ev
+        return key, validity
+    if isinstance(col, StringColumn):
+        from .strings import string_ranks
+        ranks = string_ranks(col.to_pylist())
+        return torch.from_numpy(ranks.view(np.int64)), col.validity
+    raise ArrowNotImplementedError(f"row key for {type(col).__name__}")
 
 
 def _encode_one(c: Column, rng: Optional[KeyRange]) -> List[SortKey]:

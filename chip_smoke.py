@@ -47,9 +47,36 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      against the independent computation of step 13
  15. CUDA-event medians of the config-4 calls and the peak device
      memory of each; the tables are freed between steps
+ 16. BASELINE config 5, resident: 100M probe keys from bench.py's
+     config-5 generator made on the card (hot h % 1024 or cold
+     h % 20M by bit 40 of the hash) against the build keys
+     arange(10M) * 2; join_indices inner, left, semi and anti on the
+     index plan, each held against the closed form (probe row i
+     matches build row k // 2 exactly when k is even); each is run with
+     the launch counts at 0 and K1 must launch over the four; the inner
+     join's CUDA-event median and probe rows/s
+ 17. K1 at the join's call sites, on the inputs the joins of steps 16
+     and 18 gave it: the inner finish (the matched build rows and the
+     probe positions), the semi and anti row lists (positions alone),
+     the merge plan's run starts (positions alone) and the multi-key
+     collision check; each bitwise against its plain version and timed
+     against a[keep] / keep.nonzero()
+ 18. the merge plan at scale: the same probe keys against the build
+     keys (arange(10M) // 2) * 2, each twice, so the duplicate check
+     declines the index plan; against the closed form (rows k and k + 1
+     when k is even and below 10M); K1 must launch (the run starts);
+     then a two-column join whose
+     mixer is made to collide on every pair of equal first keys, so
+     the collision check compacts the pairs, against its closed form
+ 19. BASELINE config 5, streamed: HashJoiner over the build keys
+     arange(100M) * 2 (the index plan), probed by eight 125M-row chunks
+     made on the card through probe_count_device, accumulated on the
+     device and synced every two chunks; pair count and build-row
+     checksum against the closed form summed per chunk; build and
+     streamed probe times on the host clock, synced
 
-`--profile` also traces the dictionary and config-4 group-bys with
-torch.profiler and prints, for each, the device time per kernel, the
+`--profile` also traces the dictionary and config-4 group-bys, the
+config-5 joins on both plans and one streamed chunk with torch.profiler and prints, for each, the device time per kernel, the
 host wall time and the card's idle share.
 
 Times: `ms` is the median CUDA-event time of the wrapper's call (host
@@ -60,7 +87,10 @@ read once, each output written once) over 3.35 TB/s, computed from this
 run's inputs.  `launches` is the kernel's count over the main-path run
 of the step that holds the call site: steps 5-7 for the config-1 and
 dictionary entries, the filter_table call at the same kept share for
-the sweep entries, steps 11, 12 and 13 for the others.
+the sweep entries, steps 11, 12 and 13 for the group-by entries, and
+the join call that holds the site for the join entries (the inner
+join; the semi and anti joins; the merge-plan join; the colliding
+two-column join).
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object of per-kernel results; the last line is the JSON result
@@ -70,6 +100,7 @@ JSON object of per-kernel results; the last line is the JSON result
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -92,6 +123,12 @@ CONFIG4_AGGS = ("sum", "count", "min", "max")      # bench.py:419-420
 SWEEP_ROWS = 100_000_000
 SWEEP_SHARES = (0.001, 0.02, 0.5, 1.0)
 SORT_K2_ROWS = 100_000_000         # keys (h % 1000) << 20: sort plan, G 1,000
+CONFIG5_PROBE = 100_000_000        # BASELINE config 5 resident (bench.py:573)
+CONFIG5_BUILD = 10_000_000
+CONFIG5_STREAM = 1_000_000_000     # config 5 streamed (bench.py:618)
+CONFIG5_STREAM_BUILD = 100_000_000
+CONFIG5_CHUNK = 125_000_000
+HOWS = ("inner", "left", "semi", "anti")
 
 
 # ---- measurement ---------------------------------------------------------
@@ -186,12 +223,22 @@ def _lsr(x, k):
     return (x >> k) & ((1 << (64 - k)) - 1)
 
 
+def _mix2(h: torch.Tensor) -> torch.Tensor:
+    """bench.py's two splitmix rounds, u64 bits in int64 storage."""
+    h = (h ^ _lsr(h, 30)) * (0xBF58476D1CE4E5B9 - (1 << 64))
+    return (h ^ _lsr(h, 27)) * (0x94D049BB133111EB - (1 << 64))
+
+
 def splitmix(n: int, offset: int, device) -> torch.Tensor:
     """bench.py's hash of i = arange(n) + offset + 7 (bench.py:408-414),
     u64 bits in int64 storage."""
-    h = torch.arange(n, dtype=torch.int64, device=device) + (offset + 7)
-    h = (h ^ _lsr(h, 30)) * (0xBF58476D1CE4E5B9 - (1 << 64))
-    return (h ^ _lsr(h, 27)) * (0x94D049BB133111EB - (1 << 64))
+    return _mix2(torch.arange(n, dtype=torch.int64, device=device)
+                 + (offset + 7))
+
+
+def _umod(h: torch.Tensor, m: int) -> torch.Tensor:
+    """u64 h % m on int64 storage."""
+    return ((_lsr(h, 1) % m) * 2 + (h & 1)) % m
 
 
 def config1_inputs():
@@ -209,7 +256,7 @@ def config4_table(n: int, groups: int, device, offset: int = 0,
     from arrow_tpu_torch.core.column import PrimitiveColumn
     from arrow_tpu_torch.core.table import Table
     h = splitmix(n, offset, device)
-    k = ((_lsr(h, 1) % groups) * 2 + (h & 1)) % groups   # u64 h % groups
+    k = _umod(h, groups)
     v = _lsr(h, 32) % 1000
     del h
     return Table([PrimitiveColumn(k << shift, dt.int64),
@@ -258,6 +305,24 @@ def sweep_table(dev, share: float):
                             dt.Field("y", dt.float64, nullable=False)))), keep
 
 
+def config5_keys(n: int, offset: int, domain: int, device) -> torch.Tensor:
+    """bench.py's config-5 probe keys (bench.py:576-584,626-637): h is two
+    splitmix rounds of i = arange(n) + offset; the hot key h % 1024 where
+    bit 40 of h is 0, else the cold key h % domain (u64 modulo)."""
+    h = _mix2(torch.arange(n, dtype=torch.int64, device=device) + offset)
+    return torch.where((_lsr(h, 40) & 1) == 0, h & 1023, _umod(h, domain))
+
+
+def key_table(**cols):
+    """A table of non-null Int64 columns."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import PrimitiveColumn
+    from arrow_tpu_torch.core.table import Table
+    return Table([PrimitiveColumn(v, dt.int64) for v in cols.values()],
+                 dt.Schema(tuple(dt.Field(name, dt.int64, nullable=False)
+                                 for name in cols)))
+
+
 # ---- call sites ----------------------------------------------------------
 
 @dataclass
@@ -276,27 +341,33 @@ class Site:
     def measure(self) -> dict:
         name = "compact_kernel" if self.kernel == "compact" \
             else "groupagg_kernel"
-        return {"name": self.kernel, "call_site": self.call_site,
-                "ms": time_ms(self.run),
-                "kernel_ms": kernel_ms(self.run, name),
-                "plain_ms": time_ms(self.plain),
-                "library_ms": None if self.library is None
-                else time_ms(self.library),
-                "bound_ms": bound_ms(self.bytes), "bound_by": "bytes",
-                "bytes": self.bytes}
+        out = {"name": self.kernel, "call_site": self.call_site,
+               "ms": time_ms(self.run),
+               "kernel_ms": kernel_ms(self.run, name),
+               "plain_ms": time_ms(self.plain),
+               "library_ms": None if self.library is None
+               else time_ms(self.library),
+               "bound_ms": bound_ms(self.bytes), "bound_by": "bytes",
+               "bytes": self.bytes}
+        out["share"] = out["bound_ms"] / out["kernel_ms"] \
+            if out["kernel_ms"] else None
+        return out
 
 
-def _compact_site(call_site, keep, arrays, cap, library) -> Site:
-    """K1 over `arrays` plus the kept rows' int64 positions."""
+def _compact_site(call_site, keep, arrays, cap, library,
+                  positions=torch.int64) -> Site:
+    """K1 over `arrays`, plus the kept rows' positions unless `positions`
+    is None."""
     from arrow_tpu_torch.kernels import compact as kc
     count = int(keep.sum())
     full = keep.shape[0] if cap is None else cap
     moved = keep.numel() + count * (
-        sum(a.element_size() for a in arrays) * 2 + 8)
+        sum(a.element_size() for a in arrays) * 2
+        + (0 if positions is None else positions.itemsize))
     return Site("compact", call_site,
                 lambda: kc.compact(keep, arrays, out_cap=cap,
-                                   positions=torch.int64),
-                lambda: kc.compact_plain(keep, arrays, full, torch.int64),
+                                   positions=positions),
+                lambda: kc.compact_plain(keep, arrays, full, positions),
                 library, moved)
 
 
@@ -586,14 +657,14 @@ def _reset_counts():
     kg.grouped_aggregate.launches = 0
 
 
-def _read_counts(what: str, must: str) -> dict:
+def _read_counts(what: str, must: Optional[str]) -> dict:
     from arrow_tpu_torch.kernels import compact as kc, groupagg as kg
     torch.cuda.synchronize()
     launches = {"compact": kc.compact.launches,
                 "grouped_aggregate": kg.grouped_aggregate.launches}
     print(f"{what}: launches {launches}, peak device memory "
           f"{peak_gib():.2f} GiB", flush=True)
-    if launches[must] <= 0:
+    if must is not None and launches[must] <= 0:
         raise AssertionError(f"{what} never launched {must}")
     return launches
 
@@ -759,10 +830,238 @@ def run_config4_10m(dev, profile: bool) -> dict:
     return entry
 
 
+@contextlib.contextmanager
+def watch(name: str):
+    """Record (args, kwargs) of each call of
+    arrow_tpu_torch.ops.join.<name> made inside the block."""
+    from arrow_tpu_torch.ops import join as pj
+    real, calls = getattr(pj, name), []
+
+    def wrapper(*args, **kwargs):
+        calls.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    setattr(pj, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(pj, name, real)
+
+
+def check_pairs(got, want, what: str) -> int:
+    """Row ids equal to the closed form, exactly; returns the pairs."""
+    for g, w, side in zip(got, want, ("left", "right")):
+        if g.dtype != torch.int64 or g.shape != w.shape \
+                or not torch.equal(g, w):
+            raise AssertionError(f"{what}: {side} row ids differ from the "
+                                 f"closed form ({tuple(g.shape)} against "
+                                 f"{tuple(w.shape)})")
+    return int(got[0].shape[0])
+
+
+def config5_closed_form(k: torch.Tensor, how: str):
+    """Probe row i matches build row k // 2 of the build keys
+    arange(10M) * 2 exactly when k is even (every key is below 20M)."""
+    even = (k & 1) == 0
+    if how == "left":
+        return (torch.arange(k.shape[0], device=k.device),
+                torch.where(even, k >> 1, -1))
+    rows = (even if how != "anti" else ~even).nonzero().squeeze(1)
+    return rows, (k[rows] >> 1 if how == "inner"
+                  else torch.full_like(rows, -1))
+
+
+def _k1_call(calls, arity: int):
+    """(keep, arrays, out_cap, positions) of the first K1 call of a join
+    over `arity` arrays."""
+    for args, kwargs in calls:
+        if len(args[1]) == arity:
+            return (args[0], tuple(args[1]), kwargs.get("out_cap"),
+                    kwargs.get("positions"))
+    raise AssertionError(f"the join made no K1 call over {arity} arrays")
+
+
+def run_config5_resident(dev, profile: bool):
+    """Steps 16-18: the resident joins and K1 at the join's call sites."""
+    from arrow_tpu_torch.ops.join import join_indices
+    from arrow_tpu_torch.ops import join as pj
+    k = config5_keys(CONFIG5_PROBE, 0, 2 * CONFIG5_BUILD, dev)
+    left = key_table(k=k)
+    right = key_table(k=torch.arange(CONFIG5_BUILD, device=dev) * 2)
+    what = f"config 5 {CONFIG5_PROBE // 10 ** 6}M x " \
+        f"{CONFIG5_BUILD // 10 ** 6}M"
+    launches, calls = {}, {}
+    for how in HOWS:
+        _reset_counts()
+        with watch("compact") as calls[how]:
+            got = join_indices(left, right, ["k"], how)
+        launches[how] = _read_counts(f"{what} {how} join", None)["compact"]
+        pairs = check_pairs(got, config5_closed_form(k, how),
+                            f"{what} {how}")
+        print(f"{what} {how} join: {pairs:,} rows, equal to the closed "
+              f"form", flush=True)
+        del got
+    if sum(launches.values()) <= 0:
+        raise AssertionError(f"{what}: the joins never launched compact")
+    finish = _k1_call(calls["inner"], 1)
+    if finish[1][0].dtype != torch.int32:
+        raise AssertionError(f"{what}: the inner join did not take the "
+                             f"index plan's finish")
+    lists = _k1_call(calls["semi"], 0)
+    del calls
+    peak = peak_gib()
+    join_ms = time_ms(lambda: join_indices(left, right, ["k"]))
+    print(f"{what} inner join (index plan): {join_ms:.4f} ms (CUDA events, "
+          f"median of 5), {CONFIG5_PROBE / join_ms * 1e3:.4g} probe rows/s;"
+          f" peak device memory {peak:.2f} GiB", flush=True)
+    if profile:
+        profile_call(f"{what} inner join",
+                     lambda: join_indices(left, right, ["k"]))
+
+    keep, arrays, cap, pos = finish
+    s1 = _compact_site(f"join inner finish, index plan, "
+                       f"{CONFIG5_PROBE:,} probe rows", keep, arrays, cap,
+                       lambda: (arrays[0][keep], keep.nonzero()), pos)
+    keep2, _, cap2, pos2 = lists
+    s2 = _compact_site(f"join semi/anti row lists (positions alone), "
+                       f"{CONFIG5_PROBE:,} rows", keep2, (), cap2,
+                       lambda: keep2.nonzero(), pos2)
+    entries = []
+    for site, n in ((s1, launches["inner"]),
+                    (s2, launches["semi"] + launches["anti"])):
+        err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+        entries.append(_entry(site, n, err))
+    del s1, s2, finish, lists, keep, arrays, keep2, right
+
+    # step 18: the merge plan, each build key twice
+    right = key_table(k=(torch.arange(CONFIG5_BUILD, device=dev) // 2) * 2)
+    even = ((k & 1) == 0) & (k < CONFIG5_BUILD)
+    rows = even.nonzero().squeeze(1)
+    want = (rows.repeat_interleave(2),
+            torch.stack([k[rows], k[rows] + 1], 1).reshape(-1))
+    del even, rows
+    _reset_counts()
+    with watch("_merge_stage") as merges, watch("compact") as calls:
+        got = join_indices(left, right, ["k"])
+    n = _read_counts(f"{what} inner join, merge plan", "compact")["compact"]
+    if len(merges) != 1:
+        raise AssertionError(f"{what}: the repeated build keys did not "
+                             f"take the merge plan")
+    del merges
+    pairs = check_pairs(got, want, f"{what} merge plan")
+    del got, want
+    peak = peak_gib()
+    keep, arrays, cap, pos = _k1_call(calls, 0)
+    del calls
+    site = _compact_site(f"join merge-plan run starts (positions alone), "
+                         f"{keep.shape[0]:,} sorted rows", keep, arrays, cap,
+                         lambda: keep.nonzero(), pos)
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    entries.append(_entry(site, n, err))
+    del site, keep
+    merge_ms = time_ms(lambda: join_indices(left, right, ["k"]))
+    print(f"{what} inner join, merge plan (each build key twice): "
+          f"{pairs:,} pairs equal to the closed form; {merge_ms:.4f} ms "
+          f"(CUDA events, median of 5); peak device memory {peak:.2f} GiB",
+          flush=True)
+    if profile:
+        profile_call(f"{what} inner join, merge plan",
+                     lambda: join_indices(left, right, ["k"]))
+    del right
+
+    # the collision check: column j is left out of the fold
+    i = torch.arange(CONFIG5_PROBE, device=dev)
+    left2 = key_table(k=k, j=i & 1)
+    r = torch.arange(CONFIG5_BUILD, device=dev)
+    right2 = key_table(k=r * 2, j=(r >> 1) & 1)
+    del r
+    m = ((k & 1) == 0) & ((i & 1) == ((k >> 2) & 1))
+    rows = m.nonzero().squeeze(1)
+    want = (rows, k[rows] >> 1)
+    del i, m, rows
+    real_fold = pj._fold
+    pj._fold = lambda keys: keys[0]
+    try:
+        _reset_counts()
+        with watch("compact") as calls:
+            got = join_indices(left2, right2, ["k", "j"])
+        n = _read_counts(f"{what} two-column join, colliding mixer",
+                         "compact")["compact"]
+    finally:
+        pj._fold = real_fold
+    pairs = check_pairs(got, want, f"{what} colliding two-column join")
+    print(f"{what} two-column join with the mixer colliding on every "
+          f"equal first key: {pairs:,} pairs equal to the closed form",
+          flush=True)
+    del got, want, left2, right2
+    keep, arrays, cap, pos = _k1_call(calls, 2)
+    del calls
+    s3 = _compact_site(f"join collision check, {keep.shape[0]:,} candidate "
+                       f"pairs", keep, arrays, cap,
+                       lambda: tuple(a[keep] for a in arrays), pos)
+    err = check_site(s3, same_compaction, f"K1 at {s3.call_site}")
+    entries.append(_entry(s3, n, err))
+    return entries
+
+
+def run_config5_stream(dev, profile: bool) -> None:
+    """Step 19: 1B probe rows streamed through HashJoiner."""
+    from arrow_tpu_torch.ops.join import HashJoiner
+    nb = CONFIG5_STREAM_BUILD
+    right = key_table(k=torch.arange(nb, device=dev) * 2)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    joiner = HashJoiner(right, ["k"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if joiner._plan != "index":
+        raise AssertionError(f"HashJoiner took the {joiner._plan} plan")
+
+    def stream(check: bool):
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        pairs, chk, want_pairs, want_chk = zero, zero, zero, zero
+        for ci in range(CONFIG5_STREAM // CONFIG5_CHUNK):
+            k = config5_keys(CONFIG5_CHUNK, ci * CONFIG5_CHUNK, 2 * nb, dev)
+            c, s = joiner.probe_count_device(key_table(k=k))
+            pairs, chk = pairs + c, chk + s
+            if check:        # every key is below 2 * nb: even keys match
+                even = (k & 1) == 0
+                want_pairs = want_pairs + even.sum()
+                want_chk = want_chk + torch.where(even, k >> 1, 0).sum()
+            if ci % 2 == 1:
+                pairs.item()                 # sync every two chunks
+            del k
+        return torch.stack([pairs, chk, want_pairs, want_chk]).tolist()
+
+    pairs, chk, want_pairs, want_chk = stream(True)
+    if (pairs, chk) != (want_pairs, want_chk):
+        raise AssertionError(f"config 5 streamed: pairs {pairs}, checksum "
+                             f"{chk}; closed form {want_pairs}, {want_chk}")
+    peak = peak_gib()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream(False)
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    print(f"config 5 {CONFIG5_STREAM // 10 ** 9}B x {nb // 10 ** 6}M "
+          f"streamed through HashJoiner ({CONFIG5_CHUNK:,}-row chunks made "
+          f"on the card): {pairs:,} pairs, build-row checksum {chk}, equal "
+          f"to the closed form; build {build_s * 1e3:.1f} ms, streamed probe "
+          f"{probe_s * 1e3:.1f} ms (host clock, second run, chunk "
+          f"generation included), {CONFIG5_STREAM / probe_s:.4g} probe "
+          f"rows/s; peak device memory {peak:.2f} GiB", flush=True)
+    if profile:
+        profile_call("config 5 streamed chunk (generation and probe)",
+                     lambda: joiner.probe_count_device(key_table(
+                         k=config5_keys(CONFIG5_CHUNK, 0, 2 * nb, dev))))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the group-bys with torch.profiler")
+                    help="also trace the group-bys and the join with "
+                         "torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -843,6 +1142,8 @@ def main(argv=None) -> int:
     entries.append(run_sort_plan_k2(dev))
     entries.append(run_config4_1k(dev, args.profile))
     entries.append(run_config4_10m(dev, args.profile))
+    entries += run_config5_resident(dev, args.profile)
+    run_config5_stream(dev, args.profile)
 
     sources = {
         "compact": {"route": "cuda",

@@ -44,6 +44,10 @@ def port_dtype(ref_dtype) -> att.dtypes.DataType:
                                      ordered=bool(ref_dtype.ordered))
     if ref_dtype.name == "bool":
         return att.dtypes.bool_
+    if ref_dtype.name == "timestamp":
+        return att.dtypes.timestamp(ref_dtype.unit, ref_dtype.tz)
+    if ref_dtype.unit is not None:
+        return getattr(att.dtypes, ref_dtype.name)(ref_dtype.unit)
     return getattr(att.dtypes, ref_dtype.name)
 
 
@@ -59,7 +63,11 @@ def column_spec(col) -> dict:
 
 
 def port_column(col, device="cpu"):
-    """The port's column holding the same buffers as a reference column."""
+    """The port's column holding the same buffers as a reference column
+    (a StringColumn stays on the host, as the port keeps strings)."""
+    if isinstance(col, at.StringColumn):
+        return att.StringColumn.from_pylist(col.to_pylist_host(), port_dtype(
+            col.dtype))
     return att.from_numpy(device=device, **column_spec(col))
 
 
