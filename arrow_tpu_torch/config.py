@@ -6,10 +6,16 @@ carry over: the x64 switch (torch has native 64-bit types) and the
 tensor on the CPU takes a kernel's plain PyTorch version, a CUDA tensor
 takes the hand-written kernel.  There is no global device detection and
 no switch that sends CUDA tensors to the plain version.
+
+`fused_region`, `in_fused_region` and `sync_guard` carry `fuse`'s rules
+(fuse.py) down to the ops: inside a fused pipeline checked ops do not
+sync, and an op that must read a device value on the host raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Union
 
 import torch
@@ -32,3 +38,41 @@ def resolve_device(device: DeviceLike) -> torch.device:
 def on_cuda(t: torch.Tensor) -> bool:
     """Whether `t` takes the kernel route."""
     return t.device.type == "cuda"
+
+
+_FUSED = threading.local()       # depth of `fuse`'s runs, per thread
+
+
+@contextlib.contextmanager
+def fused_region():
+    """Mark the calls inside, on this thread, as a fused pipeline's
+    (`fuse`'s warm-up and capture)."""
+    _FUSED.depth = getattr(_FUSED, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _FUSED.depth -= 1
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is being captured into a graph."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def in_fused_region() -> bool:
+    """Inside `fuse`'s warm-up run or its capture: checked ops skip
+    their flag's sync, and ops that read device values on the host
+    raise (`sync_guard`)."""
+    return getattr(_FUSED, "depth", 0) > 0 or capturing()
+
+
+def sync_guard(what: str) -> None:
+    """Raise a clear error where `what` is about to read a device value
+    on the host inside a fused pipeline: the read would fail in the
+    capture (the reference's jit refuses the same reads)."""
+    if in_fused_region():
+        raise RuntimeError(
+            f"arrow_tpu_torch.fuse: {what} reads a device value on the "
+            "host, which a captured pipeline cannot do; call it eagerly "
+            "between fused stages")

@@ -11,8 +11,13 @@ arrow_tpu/core/column.py).
     host conversion views the bits back as the logical numpy dtype.
 
 Class map (reference -> here): PrimitiveColumn, StringColumn (host-side,
-enough to be a dictionary's values) and DictionaryColumn.  The other
-layouts join with ROADMAP A7.
+enough to be a dictionary's values), DictionaryColumn and NullColumn.
+The other layouts join with ROADMAP A7.
+
+PrimitiveColumn, DictionaryColumn and NullColumn are torch pytree nodes
+(`torch.utils._pytree`), as the reference's columns are jax pytrees:
+their tensors are the leaves, their type (and a dictionary's host-side
+values) the static structure.  `fuse` captures pipelines over them.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .. import dtypes as dt
 from ..config import DeviceLike, resolve_device
@@ -28,7 +34,7 @@ from ..errors import ArrowInvalid, ArrowNotImplementedError, ArrowTypeError
 from . import validity as vd
 
 __all__ = ["Column", "PrimitiveColumn", "StringColumn", "DictionaryColumn",
-           "column", "from_numpy"]
+           "NullColumn", "column", "from_numpy"]
 
 
 class Column:
@@ -219,6 +225,48 @@ class DictionaryColumn(Column):
         mask = self._mask_host()
         return [None if mask is not None and not mask[i] else vals[c]
                 for i, c in enumerate(codes)]
+
+
+class NullColumn(Column):
+    """All-null column (arrow-array NullArray); its validity is all
+    false, on `device`."""
+
+    def __init__(self, length: int, device: DeviceLike = "cpu"):
+        self.dtype = dt.null
+        self.validity = torch.zeros((length,), dtype=torch.bool,
+                                    device=torch.device(device))
+
+    def __len__(self):
+        return int(self.validity.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.validity.device
+
+    def slice(self, offset, length):
+        return NullColumn(length, self.device)
+
+    def to_pylist(self) -> list:
+        return [None] * len(self)
+
+
+pytree.register_pytree_node(
+    PrimitiveColumn,
+    lambda c: ([c.values, c.validity], c.dtype),
+    lambda leaves, d: PrimitiveColumn(leaves[0], d, leaves[1],
+                                      _canonical=True),
+    serialized_type_name="arrow_tpu_torch.PrimitiveColumn")
+pytree.register_pytree_node(
+    DictionaryColumn,
+    lambda c: ([c.codes, c.validity], (c.values, bool(c.dtype.ordered))),
+    lambda leaves, ctx: DictionaryColumn(leaves[0], ctx[0], leaves[1],
+                                         _canonical=True, ordered=ctx[1]),
+    serialized_type_name="arrow_tpu_torch.DictionaryColumn")
+pytree.register_pytree_node(
+    NullColumn,
+    lambda c: ([c.validity], None),
+    lambda leaves, _: NullColumn(leaves[0].shape[0], leaves[0].device),
+    serialized_type_name="arrow_tpu_torch.NullColumn")
 
 
 # ---- constructors ----------------------------------------------------------

@@ -1,8 +1,12 @@
 """Datum: scalar-vs-array broadcasting for kernel arguments
 (counterpart of arrow_tpu/core/datum.py; arrow-array/src/scalar.rs:78).
 
-A scalar is a 0-d tensor; `broadcast_pair` moves it to the column's
-device and expands it without copying.
+A scalar is a 0-d tensor of its type's storage (numeric, bool and
+temporal types alike; a utf8 scalar keeps its Python str).  A scalar on
+the host meets a column on the card as a one-element fill on that
+device, expanded without copying: no copy from host memory, so a
+pipeline that builds scalars from Python values can be captured by
+`fuse`.  Scalar is a torch pytree node: its tensor is the leaf.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from .. import dtypes as dt
 from ..errors import ArrowTypeError
@@ -21,12 +26,14 @@ __all__ = ["Scalar", "Datum", "scalar", "as_datum", "broadcast_pair"]
 
 
 class Scalar:
-    """A single (possibly null) value with a logical type.  `value` is
-    always a 0-d tensor of the type's storage dtype; the null flag is
-    `valid` / `as_py()`."""
+    """A single (possibly null) value with a logical type.  `value` is a
+    0-d tensor of the type's storage dtype (a Python str, or None when
+    null, for utf8); the null flag is `valid` / `as_py()`."""
 
     def __init__(self, value, dtype: dt.DataType, valid: bool = True):
-        if not isinstance(value, torch.Tensor):
+        if dtype.is_string:
+            value = value if valid else None
+        elif not isinstance(value, torch.Tensor):
             host = np.asarray(0 if not valid else value, dtype=dtype.to_numpy())
             value = torch.from_numpy(
                 host.reshape(1).view(dtype.storage_numpy())).reshape(())
@@ -38,11 +45,19 @@ class Scalar:
         """Host value (None when null)."""
         if not self.valid:
             return None
+        if self.dtype.is_string:
+            return self.value
         return self.value.cpu().numpy().view(self.dtype.to_numpy()).item()
 
     def __repr__(self):
         return f"Scalar<{self.dtype!r}>({self.as_py()})"
 
+
+pytree.register_pytree_node(
+    Scalar,
+    lambda x: ([x.value], (x.dtype, x.valid)),
+    lambda leaves, ctx: Scalar(leaves[0], *ctx),
+    serialized_type_name="arrow_tpu_torch.Scalar")
 
 Datum = Union[Column, Scalar]
 
@@ -99,7 +114,11 @@ def broadcast_pair(lhs: Datum, rhs: Datum
 
     def parts(x):
         if isinstance(x, Scalar):
-            vals = x.value.to(device).expand(n)
+            vals = x.value
+            if vals.device != device:        # a fill, not a host copy
+                vals = torch.full((), vals.item(), dtype=vals.dtype,
+                                  device=device)
+            vals = vals.expand(n)
             mask = None if x.valid else torch.zeros((n,), dtype=torch.bool,
                                                     device=device)
             return vals, mask, x.dtype

@@ -1,9 +1,12 @@
 """Table: a schema-tagged bundle of equal-length columns on one device
-(counterpart of arrow_tpu/core/table.py; record_batch.rs:202)."""
+(counterpart of arrow_tpu/core/table.py; record_batch.rs:202).  A torch
+pytree node: its columns are the children, its schema the structure."""
 
 from __future__ import annotations
 
 from typing import Dict, List, Mapping, Optional, Sequence
+
+from torch.utils import _pytree as pytree
 
 from .. import dtypes as dt
 from ..config import DeviceLike
@@ -89,3 +92,10 @@ class Table:
     def __repr__(self):
         cols = ", ".join(f"{f.name}: {f.dtype!r}" for f in self.schema.fields)
         return f"Table[{self.num_rows} rows]({cols})"
+
+
+pytree.register_pytree_node(
+    Table,
+    lambda t: (list(t.columns), t.schema),
+    lambda cols, schema: Table(cols, schema, _validated=True),
+    serialized_type_name="arrow_tpu_torch.Table")

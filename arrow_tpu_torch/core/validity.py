@@ -24,11 +24,27 @@ def union(a: Mask, b: Mask) -> Mask:
     return torch.logical_and(a, b)
 
 
+def intersect_all(*masks: Mask) -> Mask:
+    """Validity of an n-ary kernel's output: valid where every input is."""
+    out: Mask = None
+    for m in masks:
+        out = union(out, m)
+    return out
+
+
 def null_count(mask: Mask, length: int) -> int:
     """Number of null slots (syncs one scalar)."""
     if mask is None:
         return 0
     return length - int(mask.sum())
+
+
+def valid_count(mask: Mask, length: int):
+    """Number of valid slots: `length` when there is no mask, else a 0-d
+    int64 tensor on the mask's device (no sync)."""
+    if mask is None:
+        return length
+    return mask.sum(dtype=torch.int64)
 
 
 def canonicalize(values: torch.Tensor, mask: Mask) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Logical type system of the port (counterpart of arrow_tpu/dtypes.py).
 
 The same logical-type vocabulary as the reference, restricted to what
-the port's slices carry: bool, the signed and unsigned integers,
+the port's slices carry: null, bool, the signed and unsigned integers,
 float16/32/64, the temporal types (date32/64, timestamp, time32/64,
 duration and the year_month and day_time intervals: integer storage
 plus unit and timezone metadata), utf8 and dictionary.  `to_torch`
@@ -23,12 +23,12 @@ import numpy as np
 import torch
 
 __all__ = [
-    "DataType", "bool_", "int8", "int16", "int32", "int64",
+    "DataType", "null", "bool_", "int8", "int16", "int32", "int64",
     "uint8", "uint16", "uint32", "uint64", "float16", "float32", "float64",
     "utf8", "date32", "date64", "timestamp", "time32", "time64",
     "duration", "interval", "dictionary", "Field", "Schema",
     "from_numpy_dtype",
-    "torch_dtype_name", "widen", "storage_int",
+    "torch_dtype_name", "widen", "storage_int", "integer_bounds",
 ]
 
 
@@ -75,6 +75,14 @@ class DataType:
     @property
     def is_string(self) -> bool:
         return self.name == "utf8"
+
+    @property
+    def is_null(self) -> bool:
+        return self.name == "null"
+
+    @property
+    def is_dictionary(self) -> bool:
+        return self.name == "dictionary"
 
     @property
     def is_primitive(self) -> bool:
@@ -143,6 +151,7 @@ _INTERVAL_TORCH = {"year_month": torch.int32, "day_time": torch.int64}
 _TEMPORAL_NAMES = ("date32", "date64", "timestamp", "time32", "time64",
                    "duration", "interval")
 
+null = DataType("null")
 bool_ = DataType("bool")
 int8 = DataType("int8")
 int16 = DataType("int16")
@@ -215,6 +224,12 @@ def storage_int(x: int) -> int:
     """The int64 storage value with the bits of an integer of any logical
     type (x in [-2**63, 2**64)): uint64 values above 2**63 wrap."""
     return x - (1 << 64) if x >= 1 << 63 else x
+
+
+def integer_bounds(d: DataType) -> Tuple[int, int]:
+    """(lo, hi) inclusive value bounds of an integer logical type."""
+    info = np.iinfo(d.to_numpy())
+    return int(info.min), int(info.max)
 
 
 def from_numpy_dtype(d) -> DataType:

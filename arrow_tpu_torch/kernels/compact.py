@@ -28,7 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..config import on_cuda
+from ..config import on_cuda, sync_guard
 from ..errors import ArrowInvalid
 from . import native
 
@@ -127,6 +127,8 @@ def compact(keep: torch.Tensor, arrays: Sequence[torch.Tensor],
         raise ArrowInvalid(f"compact: negative out_cap {cap}")
     if not on_cuda(keep):
         return compact_plain(keep, arrays, cap, positions)
+    if out_cap is not None:
+        sync_guard("compact(out_cap=...)")
     outs, count = _launch(keep, arrays, cap, positions)
     if out_cap is not None and int(count) > cap:
         raise ArrowInvalid(f"compact: {int(count)} kept rows exceed "

@@ -11,6 +11,7 @@ import torch
 
 from .. import dtypes as dt
 from ..core.column import PrimitiveColumn
+from ..config import in_fused_region
 from ..core.datum import Datum, broadcast_pair
 from ..errors import ArrowError
 
@@ -55,6 +56,11 @@ def binary_with_flag(lhs: Datum, rhs: Datum, fn: Callable,
 
 
 def check_flag(flag: torch.Tensor, exc_type, message: str) -> None:
-    """Sync point of the eager API: raise if the error flag fired."""
+    """Sync point of the eager API: raise if the error flag fired.
+    Inside a captured pipeline (`fuse` on the card) the check is skipped
+    and checked ops behave as wrapping, as in the reference's fused
+    regions (arity.py:66-77)."""
+    if in_fused_region():
+        return
     if bool(flag):
         raise exc_type(message)

@@ -1,0 +1,320 @@
+"""Type conversion (counterpart of arrow_tpu/ops/cast.py: CastOptions,
+can_cast, cast, _all_null, _temporal_scale, _apply_failures and
+_cast_primitive, cast.py:54-420; arrow-cast/src/cast/mod.rs).
+
+    safe=True  -> a value that cannot convert becomes null
+    safe=False -> raises CastError (one host sync; inside `fuse` on the
+                  card it raises RuntimeError: capture cannot read the
+                  flag on the host)
+
+Families of this slice:
+  numeric <-> numeric    bounds mask + convert
+  numeric <-> bool       nonzero / 0-1
+  temporal <-> temporal  checked multiply to a finer unit, floor divide
+                         to a coarser one
+  temporal <-> numeric   through the storage integer
+  dictionary             values cast with the codes kept (key narrowing
+                         through the checked cast), or unpacked
+  identity, null -> T    no-op, all-null column
+
+String, decimal, list, map, struct, REE and interval casts join with
+ROADMAP A7 and raise ArrowNotImplementedError.
+
+Bits that torch does not give by itself, each matching the reference's
+XLA conversion:
+  - float -> int64 / uint64 saturates at 2**63 / 2**64, the one value
+    the reference's bound `t <= float(hi)` lets through;
+  - uint64 (int64 storage) -> float rounds once: values at or above
+    2**63 are halved keeping a sticky bit, converted, then doubled;
+  - float64 -> float16 rounds once: torch goes through float32 (two
+    roundings), so the float32 step rounds to odd first.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+from .. import dtypes as dt
+from ..config import sync_guard
+from ..core import validity as vd
+from ..core.column import (Column, DictionaryColumn, NullColumn,
+                           PrimitiveColumn, StringColumn)
+from ..errors import ArrowNotImplementedError, CastError
+
+__all__ = ["CastOptions", "cast", "can_cast"]
+
+_UNIT_NS = {"s": 1_000_000_000, "ms": 1_000_000, "us": 1_000, "ns": 1}
+_SIGN = -(1 << 63)
+_I64_MAX = (1 << 63) - 1
+
+
+@dataclass(frozen=True)
+class CastOptions:
+    safe: bool = True
+
+
+def can_cast(from_dt: dt.DataType, to_dt: dt.DataType) -> bool:
+    """can_cast_types (mod.rs:92), cast.py:59-122 over the port's types:
+    the decimal, list, map, struct and REE arms have no type here."""
+    if from_dt == to_dt:
+        return True
+    if from_dt.is_null or to_dt.is_null:
+        return True
+    if from_dt.name == "interval" or to_dt.name == "interval":
+        # the reference's narrow interval matrix (cast/mod.rs:283-298);
+        # month_day_nano is not a unit of the port
+        if from_dt.name == "interval" and to_dt.name == "interval":
+            return to_dt.unit == "month_day_nano"
+        if from_dt.name == "interval":
+            if to_dt.is_string:
+                return True
+            if to_dt == dt.int64:
+                return from_dt.unit in ("year_month", "day_time")
+            return to_dt.name == "duration" and \
+                from_dt.unit == "month_day_nano"
+        if from_dt.is_string:
+            return True
+        if from_dt == dt.int32:
+            return to_dt.unit == "year_month"
+        return from_dt.name == "duration" and to_dt.unit == "month_day_nano"
+    prim = lambda d: d.is_numeric or d.is_boolean or d.is_temporal
+    if prim(from_dt) and prim(to_dt):
+        return True
+    if from_dt.is_string and (prim(to_dt) or to_dt.is_string
+                              or to_dt.is_dictionary):
+        return True
+    if prim(from_dt) and to_dt.is_string:
+        return True
+    if from_dt.is_dictionary or to_dt.is_dictionary:
+        inner_from = from_dt.value_type if from_dt.is_dictionary else from_dt
+        inner_to = to_dt.value_type if to_dt.is_dictionary else to_dt
+        return can_cast(inner_from, inner_to)
+    return False
+
+
+def _later(what: str) -> ArrowNotImplementedError:
+    return ArrowNotImplementedError(f"cast {what} joins with ROADMAP A7")
+
+
+def cast(col: Column, to: dt.DataType,
+         options: CastOptions = CastOptions()) -> Column:
+    """cast_with_options (mod.rs:696) for the families of this slice."""
+    from_dt = col.dtype
+    if from_dt == to:
+        return col
+    if isinstance(col, NullColumn):
+        return _all_null(to, len(col), col.device)
+    if to.is_null:
+        return NullColumn(len(col), col.device)
+
+    if isinstance(col, DictionaryColumn):
+        if to.is_dictionary:
+            new_values = cast(col.values, to.value_type, options)
+            # key narrowing goes through the checked numeric cast
+            # (dictionary_cast, mod.rs:742): out-of-range codes become
+            # null (safe) or raise (unsafe) instead of wrapping
+            key = cast(PrimitiveColumn(col.codes, from_dt.index_type,
+                                       col.validity, _canonical=True),
+                       to.index_type, options)
+            return DictionaryColumn(key.values, new_values, key.validity)
+        # unpack: decode, then cast (dictionary_cast, mod.rs:742)
+        from .take import take
+        idx = PrimitiveColumn(col.codes, from_dt.index_type, col.validity,
+                              _canonical=True)
+        if isinstance(col.values, StringColumn):
+            return cast(take(col.values, idx), to, options)
+        values = col.values
+        if values.device != col.device:
+            values = PrimitiveColumn(
+                values.values.to(col.device), values.dtype,
+                None if values.validity is None
+                else values.validity.to(col.device), _canonical=True)
+        return cast(take(values, idx), to, options)
+    if not isinstance(col, PrimitiveColumn) or not to.is_primitive or \
+            "interval" in (from_dt.name, to.name):
+        raise _later(f"{from_dt!r} -> {to!r}")
+    return _cast_primitive(col, to, options)
+
+
+def _all_null(to: dt.DataType, n: int, device) -> Column:
+    """All-null column of a primitive, dictionary or null target
+    (cast/mod.rs:306 Null -> T arms)."""
+    if to.is_null:
+        return NullColumn(n, device)
+    mask = torch.zeros((n,), dtype=torch.bool, device=device) if n else None
+    if to.is_dictionary:
+        return DictionaryColumn(
+            torch.zeros((n,), dtype=to.index_type.to_torch(), device=device),
+            _all_null(to.value_type, 1, "cpu"), mask)
+    if to.is_string:
+        return StringColumn(torch.zeros((n + 1,), dtype=torch.int32),
+                            torch.zeros((0,), dtype=torch.uint8), to,
+                            None if mask is None else mask.cpu())
+    if not to.is_primitive:
+        raise _later(f"null -> {to!r}")
+    return PrimitiveColumn(torch.zeros((n,), dtype=to.to_torch(),
+                                       device=device), to, mask,
+                           _canonical=True)
+
+
+# ---- primitive <-> primitive -------------------------------------------------
+
+def _temporal_scale(d: dt.DataType) -> Optional[int]:
+    """Nanoseconds per unit for temporal types; None for the others."""
+    if d.name in ("timestamp", "duration", "time32", "time64"):
+        return _UNIT_NS[d.unit]
+    if d.name == "date32":
+        return 86_400 * _UNIT_NS["s"]
+    if d.name == "date64":
+        return _UNIT_NS["ms"]
+    return None
+
+
+def _apply_failures(values: torch.Tensor, failed: torch.Tensor,
+                    col_validity: vd.Mask, to: dt.DataType,
+                    options: CastOptions) -> PrimitiveColumn:
+    if col_validity is not None:
+        failed = failed & col_validity
+    if not options.safe:
+        sync_guard("cast(safe=False)")
+        count = int(failed.sum())
+        if count:
+            raise CastError(f"cast failed for {count} values")
+        return PrimitiveColumn(values, to, col_validity)
+    return PrimitiveColumn(values, to, vd.union(col_validity, ~failed))
+
+
+def _none_failed(v: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(v.shape, dtype=torch.bool, device=v.device)
+
+
+def _int_to_float(w: torch.Tensor, d: dt.DataType,
+                  to: torch.dtype) -> torch.Tensor:
+    """Exact int64 values of logical integer type `d` (uint64: its bits)
+    to float type `to`, rounded once."""
+    if d.name != "uint64":
+        return w.to(to)
+    big = w < 0                                  # u64 values >= 2**63
+    half = ((w >> 1) & _I64_MAX) | (w & 1)       # sticky bit kept
+    f = torch.where(big, half, w).to(to)
+    return torch.where(big, f * 2, f)
+
+
+def _f64_to_f16(v: torch.Tensor) -> torch.Tensor:
+    """float64 -> float16 rounded once: round to odd into float32 (no
+    tie survives), then float32 -> float16 to nearest even."""
+    y = v.to(torch.float32)
+    y64 = y.to(torch.float64)
+    inexact = (y64 != v) & torch.isfinite(v)
+    yb = y.view(torch.int32)
+    toward_zero = torch.where(y64.abs() > v.abs(), yb - 1, yb)
+    return torch.where(inexact, toward_zero | 1, yb) \
+        .view(torch.float32).to(torch.float16)
+
+
+def _to_float(v: torch.Tensor, d: dt.DataType, to: dt.DataType
+              ) -> torch.Tensor:
+    target = to.to_torch()
+    if d.is_floating:
+        if d == dt.float64 and to == dt.float16:
+            return _f64_to_f16(v)
+        return v.to(target)
+    return _int_to_float(dt.widen(v, d), d, target)
+
+
+def _float_to_int(v: torch.Tensor, to: dt.DataType, validity: vd.Mask,
+                  options: CastOptions) -> PrimitiveColumn:
+    """Fail on NaN, inf and out-of-range values, truncate toward zero
+    (cast.py:394-401)."""
+    lo, hi = dt.integer_bounds(to)
+    t = torch.trunc(v.to(torch.float64))
+    failed = ~(torch.isfinite(t) & (t >= float(lo)) & (t <= float(hi)))
+    t = torch.where(failed, 0.0, t)
+    if to.byte_width < 8:
+        return _apply_failures(t.to(torch.int64).to(to.to_torch()), failed,
+                               validity, to, options)
+    # float(hi) rounds up to 2**63 (int64) or 2**64 (uint64): the
+    # reference's conversion saturates there, torch's wraps
+    if to.is_signed_integer:
+        out = torch.where(t >= 2.0 ** 63, _I64_MAX, t.to(torch.int64))
+    else:
+        top = t >= 2.0 ** 63
+        low = torch.where(top, t - 2.0 ** 63, t).clamp(max=2.0 ** 63 - 1024)
+        out = torch.where(top, low.to(torch.int64) ^ _SIGN,
+                          low.to(torch.int64))
+        out = torch.where(t >= 2.0 ** 64, -1, out)
+    return _apply_failures(out, failed, validity, to, options)
+
+
+def _int_to_int(v: torch.Tensor, d: dt.DataType, to: dt.DataType,
+                validity: vd.Mask, options: CastOptions) -> PrimitiveColumn:
+    """Bounds check, then narrow (cast.py:402-418); unsigned values on
+    signed storage compare after widening, uint64 by its sign bit."""
+    lo, hi = dt.integer_bounds(to)
+    x = dt.widen(v, d)
+    if d.is_unsigned_integer:
+        failed = _none_failed(v)
+        if hi < 2 ** 64 - 1:
+            failed = x > hi
+            if d.name == "uint64":
+                failed = failed | (x < 0)         # bits at or above 2**63
+    else:
+        failed = _none_failed(v)
+        if lo > -2 ** 63:
+            failed = failed | (x < lo)
+        if hi < 2 ** 63 - 1:
+            failed = failed | (x > hi)
+    x = torch.where(failed, 0, x)
+    return _apply_failures(x.to(to.to_torch()), failed, validity, to, options)
+
+
+def _cast_primitive(col: PrimitiveColumn, to: dt.DataType,
+                    options: CastOptions) -> PrimitiveColumn:
+    from_dt = col.dtype
+    v = col.values
+    fs, ts = _temporal_scale(from_dt), _temporal_scale(to)
+
+    # temporal <-> temporal: rescale through the unit ratio
+    if fs is not None and ts is not None:
+        x = v.to(torch.int64)
+        if fs >= ts:
+            ratio = fs // ts
+            # checked_mul (cast/mod.rs:1542 unary_opt): overflow is null
+            # (safe) or an error (unsafe), never a wrapped value
+            hi, lo = (2 ** 63 - 1) // ratio, (-2 ** 63) // ratio
+            failed = (x > hi) | (x < lo) if ratio > 1 else _none_failed(v)
+            out = torch.where(failed, 0, x) * ratio
+        else:
+            # to a coarser unit: floor toward -inf (chrono semantics)
+            out = torch.floor_divide(x, ts // fs)
+            failed = _none_failed(v)
+        return _apply_failures(out.to(to.to_torch()), failed, col.validity,
+                               to, options)
+
+    # temporal -> numeric / numeric -> temporal: through the storage int
+    if fs is not None or ts is not None:
+        storage = dt.int64 if (from_dt if fs else to).byte_width == 8 \
+            else dt.int32
+        if fs is not None:
+            return _cast_primitive(
+                PrimitiveColumn(v, storage, col.validity, _canonical=True),
+                to, options)
+        inner = _cast_primitive(col, storage, options)
+        return PrimitiveColumn(inner.values.to(to.to_torch()), to,
+                               inner.validity, _canonical=True)
+
+    if to.is_boolean:
+        return PrimitiveColumn(v != 0, to, col.validity)
+    if from_dt.is_boolean:
+        return PrimitiveColumn(v.to(to.to_torch()), to, col.validity)
+    if to.is_floating:
+        # never fails: rounding allowed, overflow -> inf (num::cast)
+        return PrimitiveColumn(_to_float(v, from_dt, to), to, col.validity)
+    if to.is_integer:
+        if from_dt.is_floating:
+            return _float_to_int(v, to, col.validity, options)
+        return _int_to_int(v, from_dt, to, col.validity, options)
+    raise _later(f"{from_dt!r} -> {to!r}")

@@ -1,0 +1,99 @@
+"""Comparison kernels: eq, neq, lt, lt_eq, gt, gt_eq, distinct and
+not_distinct (counterpart of arrow_tpu/ops/cmp.py:26-101;
+arrow-ord/src/cmp.rs:79-200) on column/scalar pairs.
+
+Outputs are dense bool tensors with the joint validity.  Floats compare
+as IEEE values (NaN != NaN); the total order lives in ops/row_format.py.
+Unsigned values on signed storage (dtypes.py) order through the
+sign-flip map.  Dictionary and string operands go to ops/strings.py
+(`compare`) before anything else, so a raw Python str passes straight
+through.  The decimal arm (cmp.py:104-178) joins with ROADMAP A7.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import dtypes as dt
+from ..core import validity as vd
+from ..core.column import DictionaryColumn, PrimitiveColumn, StringColumn
+from ..core.datum import Datum, Scalar, as_datum, broadcast_pair
+from ..errors import ArrowTypeError
+
+__all__ = ["eq", "neq", "lt", "lt_eq", "gt", "gt_eq",
+           "distinct", "not_distinct"]
+
+_OPS = {"eq": torch.eq, "neq": torch.ne, "lt": torch.lt,
+        "lt_eq": torch.le, "gt": torch.gt, "gt_eq": torch.ge}
+
+
+def _ordered(v: torch.Tensor, d: dt.DataType) -> torch.Tensor:
+    """Storage whose signed order is the logical order: unsigned types
+    wider than a byte live on signed storage, so flip their sign bit."""
+    if d.is_unsigned_integer and v.dtype != torch.uint8:
+        return v ^ torch.iinfo(v.dtype).min
+    return v
+
+
+def _is_stringy(x) -> bool:
+    if isinstance(x, (StringColumn, DictionaryColumn, str, bytes)):
+        return True
+    return isinstance(x, Scalar) and x.dtype.is_string
+
+
+def _dispatch(op: str, lhs, rhs) -> PrimitiveColumn:
+    if _is_stringy(lhs) or _is_stringy(rhs):
+        from . import strings
+        return strings.compare(op, lhs, rhs)
+    lhs, rhs = as_datum(lhs), as_datum(rhs)
+    lv, rv, mask, _, ldt, rdt = broadcast_pair(lhs, rhs)
+    if ldt != rdt and not (ldt.is_numeric and rdt.is_numeric
+                           and ldt.to_numpy() == rdt.to_numpy()):
+        raise ArrowTypeError(f"cannot compare {ldt!r} with {rdt!r}")
+    if op not in ("eq", "neq"):
+        lv, rv = _ordered(lv, ldt), _ordered(rv, rdt)
+    return PrimitiveColumn(_OPS[op](lv, rv), dt.bool_, mask)
+
+
+def eq(lhs, rhs) -> PrimitiveColumn:
+    return _dispatch("eq", lhs, rhs)
+
+
+def neq(lhs, rhs) -> PrimitiveColumn:
+    return _dispatch("neq", lhs, rhs)
+
+
+def lt(lhs, rhs) -> PrimitiveColumn:
+    return _dispatch("lt", lhs, rhs)
+
+
+def lt_eq(lhs, rhs) -> PrimitiveColumn:
+    return _dispatch("lt_eq", lhs, rhs)
+
+
+def gt(lhs, rhs) -> PrimitiveColumn:
+    return _dispatch("gt", lhs, rhs)
+
+
+def gt_eq(lhs, rhs) -> PrimitiveColumn:
+    return _dispatch("gt_eq", lhs, rhs)
+
+
+def distinct(lhs, rhs) -> PrimitiveColumn:
+    """Null-aware !=: null distinct null is false, null distinct x is
+    true.  The output has no nulls (cmp.rs `distinct`)."""
+    lhs, rhs = as_datum(lhs), as_datum(rhs)
+    lv, rv, _, n, _, _ = broadcast_pair(lhs, rhs)
+    lm, rm = _mask(lhs, n, lv.device), _mask(rhs, n, lv.device)
+    return PrimitiveColumn(torch.where(lm & rm, lv != rv, lm != rm),
+                           dt.bool_)
+
+
+def not_distinct(lhs, rhs) -> PrimitiveColumn:
+    return PrimitiveColumn(~distinct(lhs, rhs).values, dt.bool_)
+
+
+def _mask(x: Datum, n: int, device) -> torch.Tensor:
+    if isinstance(x, Scalar):
+        return torch.full((n,), x.valid, dtype=torch.bool, device=device)
+    return vd.make_mask(n, x.validity, device)

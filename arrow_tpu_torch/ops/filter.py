@@ -21,6 +21,7 @@ from typing import Tuple
 
 import torch
 
+from ..config import sync_guard
 from ..core.column import Column, DictionaryColumn, PrimitiveColumn
 from ..core.datum import as_datum
 from ..core.table import Table
@@ -43,6 +44,7 @@ class FilterPredicate:
         if predicate.validity is not None:
             keep = torch.logical_and(keep, predicate.validity)
         self.keep = keep.contiguous()
+        sync_guard("filter")
         self.count = int(keep.sum())     # host sync: one scalar
 
 

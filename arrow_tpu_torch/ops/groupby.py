@@ -154,6 +154,9 @@ def _group_by(table: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
     key_cols = [table.column(k) for k in keys]
     for c in key_cols:
         rf.key_kind(c)                    # raises on layouts still to port
+        if isinstance(c, StringColumn):
+            raise ArrowNotImplementedError(
+                "group_by: string keys join with ROADMAP A7")
     if table.num_rows == 0:
         return _empty_group_by(table, keys, aggs)
     for a in aggs:

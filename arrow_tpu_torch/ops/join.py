@@ -51,7 +51,7 @@ from ..core import validity as vd
 from ..core.column import (Column, DictionaryColumn, PrimitiveColumn,
                            StringColumn)
 from ..core.table import Table
-from ..errors import ArrowInvalid
+from ..errors import ArrowInvalid, ArrowNotImplementedError
 from ..kernels.compact import compact
 from .row_format import encode_value_key
 from .strings import _as_dict, _dict_slot_validity, merged_string_ranks
@@ -459,6 +459,10 @@ def join(left: Table, right: Table, on: Sequence[str], how: str = "inner",
     columns that are not keys (nullable; a clashing name takes
     `suffix`).  Semi and anti joins return the left columns only."""
     right_on_l = list(right_on or on)
+    for c in (*left.columns, *right.columns):
+        if isinstance(c, StringColumn):
+            raise ArrowNotImplementedError(
+                "join: string columns in the output join with ROADMAP A7")
     li, ri = join_indices(left, right, on, how, right_on)
     cols: List[Column] = [take(c, li) for c in left.columns]
     fields = list(left.schema.fields)

@@ -74,10 +74,36 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      device and synced every two chunks; pair count and build-row
      checksum against the closed form summed per chunk; build and
      streamed probe times on the host clock, synced
+ 20. BASELINE config 2, 10M rows from bench.py:181-193's generator
+     (rng(1)): bench.py's run() (three casts, three comparisons, the
+     dictionary predicate eq(dict, "word-0042")) eagerly, against closed
+     forms (m1 false where i32 is valid, with i32's validity; m2 codes ==
+     42; m3 all true), then through fuse (a CUDA graph), bitwise equal
+     to the eager run; bench.py's ten-pass steady-state loop
+     (bench.py:264-294) in one fused call, eager and fused equal to a
+     numpy closed form; CUDA-event medians of all three
+ 21. config 2's WHERE (m1 OR m4) AND m2 AND m3 (m4 = gt_eq(cast(i32,
+     int64), 0), bench.py:281) through or_kleene / and_kleene and
+     filter_table over the three source columns: it must launch K1; its
+     count and rows equal numpy's; then K1 at its inputs against its
+     plain version and `a[keep]`
+ 22. BASELINE config 3, 100M rows made on the card (bench.py:344-349:
+     keys _mix2(arange(n)), 10% null where h % 10 == 0, dictionary codes
+     h % 1000): lexsort_to_indices ascending, nulls first, held to an
+     independent O(n) check (a permutation; keys non-decreasing, nulls
+     first; ties in ascending index); sort_table of the same table equal
+     to take_table by those indices; CUDA-event medians and peak memory
+ 23. rank and partition over config 3's sorted Int64 column: each must
+     launch K1, rank equals an independent searchsorted rank, partition
+     the runs of the sorted keys; then K1 at rank's run starts and at
+     partition's boundaries (positions alone) bitwise against its plain
+     version and timed against keep.nonzero()
 
 `--profile` also traces the dictionary and config-4 group-bys, the
-config-5 joins on both plans and one streamed chunk with torch.profiler and prints, for each, the device time per kernel, the
-host wall time and the card's idle share.
+config-5 joins on both plans, one streamed chunk, config 2 (eager and
+fused) and config 3 (lexsort, sort_table) with torch.profiler and
+prints, for each, the device time per kernel, the host wall time and
+the card's idle share.
 
 Times: `ms` is the median CUDA-event time of the wrapper's call (host
 work included), `kernel_ms` the kernel's device time per call from
@@ -90,7 +116,8 @@ dictionary entries, the filter_table call at the same kept share for
 the sweep entries, steps 11, 12 and 13 for the group-by entries, and
 the join call that holds the site for the join entries (the inner
 join; the semi and anti joins; the merge-plan join; the colliding
-two-column join).
+two-column join), the filter_table call of config 2's WHERE, and the
+rank and partition calls of step 23.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object of per-kernel results; the last line is the JSON result
@@ -129,6 +156,9 @@ CONFIG5_STREAM = 1_000_000_000     # config 5 streamed (bench.py:618)
 CONFIG5_STREAM_BUILD = 100_000_000
 CONFIG5_CHUNK = 125_000_000
 HOWS = ("inner", "left", "semi", "anti")
+CONFIG2_ROWS = 10_000_000          # BASELINE config 2 (bench.py:181)
+CONFIG2_PASSES = 10                # its steady-state loop (bench.py:264)
+CONFIG3_ROWS = 100_000_000         # BASELINE config 3 (bench.py:339)
 
 
 # ---- measurement ---------------------------------------------------------
@@ -831,21 +861,22 @@ def run_config4_10m(dev, profile: bool) -> dict:
 
 
 @contextlib.contextmanager
-def watch(name: str):
+def watch(name: str, module: str = "join"):
     """Record (args, kwargs) of each call of
-    arrow_tpu_torch.ops.join.<name> made inside the block."""
-    from arrow_tpu_torch.ops import join as pj
-    real, calls = getattr(pj, name), []
+    arrow_tpu_torch.ops.<module>.<name> made inside the block."""
+    import importlib
+    mod = importlib.import_module(f"arrow_tpu_torch.ops.{module}")
+    real, calls = getattr(mod, name), []
 
     def wrapper(*args, **kwargs):
         calls.append((args, kwargs))
         return real(*args, **kwargs)
 
-    setattr(pj, name, wrapper)
+    setattr(mod, name, wrapper)
     try:
         yield calls
     finally:
-        setattr(pj, name, real)
+        setattr(mod, name, real)
 
 
 def check_pairs(got, want, what: str) -> int:
@@ -1057,11 +1088,315 @@ def run_config5_stream(dev, profile: bool) -> None:
                          k=config5_keys(CONFIG5_CHUNK, 0, 2 * nb, dev))))
 
 
+# ---- config 2: cast + compare -------------------------------------------
+
+def config2_inputs(n: int, dev):
+    """bench.py:181-193's generator (rng(1)): host arrays and the columns
+    on the card."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import (DictionaryColumn,
+                                             PrimitiveColumn, StringColumn)
+    rng = np.random.default_rng(1)
+    i32 = rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)
+    valid = rng.random(n) > 0.1
+    ts = rng.integers(0, 2 ** 40, n)
+    codes = rng.integers(0, 1000, n).astype(np.int32)
+    words = StringColumn.from_pylist([f"word-{i:04d}" for i in range(1000)])
+    cols = (PrimitiveColumn(torch.from_numpy(i32).to(dev), dt.int32,
+                            torch.from_numpy(valid).to(dev)),
+            PrimitiveColumn(torch.from_numpy(ts).to(dev), dt.timestamp("us")),
+            DictionaryColumn(torch.from_numpy(codes).to(dev), words))
+    return (i32, valid, ts, codes), cols
+
+
+def config2_run(i32, ts, dcol):
+    """bench.py's config-2 run() (bench.py:195-202)."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.ops.cast import cast
+    from arrow_tpu_torch.ops.cmp import eq, gt_eq, lt
+    a = cast(i32, dt.int64)
+    b = cast(i32, dt.float64)
+    c = cast(ts, dt.timestamp("ns"))
+    return lt(b, cast(a, dt.float64)), eq(dcol, "word-0042"), gt_eq(c, c)
+
+
+def config2_loop(i32, tsi, dcol):
+    """bench.py's steady-state loop (bench.py:264-294): CONFIG2_PASSES
+    passes whose scalars vary, summing the kept rows."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.datum import Scalar
+    from arrow_tpu_torch.ops.cast import cast
+    from arrow_tpu_torch.ops.cmp import eq, gt_eq, lt
+    from arrow_tpu_torch.ops.numeric import add_wrapping
+    m2 = eq(dcol, "word-0042")
+    acc = torch.zeros((), dtype=torch.int64, device=i32.device)
+    for i in range(CONFIG2_PASSES):
+        x = add_wrapping(i32, Scalar(i, dt.int32))
+        a = cast(x, dt.int64)
+        b = cast(x, dt.float64)
+        t2 = add_wrapping(tsi, Scalar(i, dt.int64))
+        c = cast(cast(t2, dt.timestamp("us")), dt.timestamp("ns"))
+        m1 = lt(b, Scalar(float(i * 100_000_000), dt.float64))
+        m4 = gt_eq(a, Scalar(-i, dt.int64))
+        m3 = gt_eq(c, Scalar(i * 1000, dt.timestamp("ns")))
+        keep = (m1.values | m4.values) & m2.values & m3.values
+        acc = acc + keep.sum()
+    return acc
+
+
+def config2_loop_closed_form(host) -> int:
+    """The loop's sum by numpy."""
+    i32, valid, ts, codes = host
+    total = 0
+    for i in range(CONFIG2_PASSES):
+        x = (i32.astype(np.int64) + i).astype(np.int32)    # wrapping
+        m1 = valid & (x.astype(np.float64) < i * 1e8)
+        m4 = valid & (x.astype(np.int64) >= -i)
+        m3 = (ts + i) * 1000 >= i * 1000
+        total += int(((m1 | m4) & (codes == 42) & m3).sum())
+    return total
+
+
+def _same_column(a, b, what: str) -> None:
+    """Equal values (a dictionary's codes) and validity, bitwise."""
+    va, vb = getattr(a, "codes", a.values), getattr(b, "codes", b.values)
+    if not torch.equal(_bits(va), _bits(vb)) or \
+            (a.validity is None) != (b.validity is None) or \
+            (a.validity is not None and not torch.equal(a.validity,
+                                                        b.validity)):
+        raise AssertionError(f"{what}: columns differ")
+
+
+def run_config2(dev, profile: bool) -> dict:
+    """Steps 20-21."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import PrimitiveColumn
+    from arrow_tpu_torch.core.datum import Scalar
+    from arrow_tpu_torch.core.table import Table
+    from arrow_tpu_torch.fuse import fuse
+    from arrow_tpu_torch.ops.boolean import and_kleene, or_kleene
+    from arrow_tpu_torch.ops.cast import cast
+    from arrow_tpu_torch.ops.cmp import gt_eq
+    from arrow_tpu_torch.ops.filter import filter_table
+    n = CONFIG2_ROWS
+    host, (i32, ts, dcol) = config2_inputs(n, dev)
+    i32_np, valid_np, ts_np, codes_np = host
+    what = f"config 2, {n:,} rows"
+
+    m1, m2, m3 = config2_run(i32, ts, dcol)
+    torch.cuda.synchronize()
+    valid = torch.from_numpy(valid_np).to(dev)
+    if bool(m1.values.any()) or not torch.equal(m1.validity, valid):
+        raise AssertionError(f"{what}: m1 is not false with i32's validity")
+    if not torch.equal(m2.values, torch.from_numpy(codes_np == 42).to(dev)):
+        raise AssertionError(f"{what}: m2 differs from codes == 42")
+    if not bool(m3.values.all()) or not bool(m3.validity.all()):
+        raise AssertionError(f"{what}: m3 is not all true")
+    fused_run = fuse(config2_run)
+    for got, want, name in zip(fused_run(i32, ts, dcol), (m1, m2, m3),
+                               ("m1", "m2", "m3")):
+        _same_column(got, want, f"{what} fused {name}")
+    print(f"{what}: run() equal to the closed forms (m1 false on "
+          f"{int(valid.sum()):,} valid rows, m2 {int(m2.values.sum()):,} "
+          f"rows of word-0042, m3 all true); fuse bitwise equal to eager",
+          flush=True)
+
+    tsi = PrimitiveColumn(ts.values, dt.int64)
+    fused_loop = fuse(config2_loop)
+    want = config2_loop_closed_form(host)
+    eager_sum = int(config2_loop(i32, tsi, dcol))
+    fused_sum = int(fused_loop(i32, tsi, dcol))
+    if not eager_sum == fused_sum == want:
+        raise AssertionError(f"{what}: loop sums eager {eager_sum}, fused "
+                             f"{fused_sum}, numpy {want}")
+    eager_ms = time_ms(lambda: config2_run(i32, ts, dcol))
+    fused_ms = time_ms(lambda: fused_run(i32, ts, dcol))
+    loop_ms = time_ms(lambda: fused_loop(i32, tsi, dcol))
+    loop_eager_ms = time_ms(lambda: config2_loop(i32, tsi, dcol))
+    print(f"{what}: run() eager {eager_ms:.4f} ms, fused {fused_ms:.4f} ms; "
+          f"the {CONFIG2_PASSES}-pass loop (sum {want:,}, equal to numpy) "
+          f"fused {loop_ms:.4f} ms ({CONFIG2_PASSES * n / loop_ms * 1e3:.4g}"
+          f" rows/s), eager {loop_eager_ms:.4f} ms (CUDA events, median of "
+          f"5)", flush=True)
+    if profile:
+        profile_call(f"{what} run() eager", lambda: config2_run(i32, ts, dcol))
+        profile_call(f"{what} run() fused", lambda: fused_run(i32, ts, dcol))
+        profile_call(f"{what} {CONFIG2_PASSES}-pass loop fused",
+                     lambda: fused_loop(i32, tsi, dcol))
+    del fused_run, fused_loop
+
+    # step 21: the WHERE query
+    m4 = gt_eq(cast(i32, dt.int64), Scalar(0, dt.int64))
+    pred = and_kleene(and_kleene(or_kleene(m1, m4), m2), m3)
+    table = Table([i32, ts, dcol], dt.Schema((
+        dt.Field("i32", dt.int32), dt.Field("ts", dt.timestamp("us")),
+        dt.Field("d", dcol.dtype))))
+    _reset_counts()
+    out = filter_table(table, pred)
+    launches = _read_counts(f"{what} WHERE filter_table", "compact")
+    keep_np = valid_np & (i32_np >= 0) & (codes_np == 42)
+    rows = int(keep_np.sum())
+    got = (out.column("i32").values, out.column("ts").values,
+           out.column("d").codes)
+    for g, w, name in zip(got, (i32_np, ts_np, codes_np),
+                          ("i32", "ts", "codes")):
+        if g.shape[0] != rows or not np.array_equal(g.cpu().numpy(),
+                                                    w[keep_np]):
+            raise AssertionError(f"{what} WHERE: {name} differs from numpy")
+    where_ms = time_ms(lambda: filter_table(table, pred))
+    print(f"{what} WHERE (m1 OR m4) AND m2 AND m3: {rows:,} rows equal to "
+          f"numpy; filter_table {where_ms:.4f} ms", flush=True)
+    keep = (pred.values & pred.validity).contiguous()
+    buffers = (i32.values, i32.validity, ts.values, dcol.codes)
+    site = _compact_site(f"config-2 WHERE, filter_table, {n:,} rows",
+                         keep, buffers, rows,
+                         lambda: tuple(b[keep] for b in buffers), None)
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    return _entry(site, launches["compact"], err)
+
+
+# ---- config 3: two-key sort ------------------------------------------------
+
+def config3_table(n: int, dev):
+    """bench.py:344-349 on the card: Int64 keys h = _mix2(arange(n)), null
+    where h % 10 == 0; Dictionary<Utf8> codes h % 1000 over 1,000 words."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import (DictionaryColumn,
+                                             PrimitiveColumn, StringColumn)
+    from arrow_tpu_torch.core.table import Table
+    h = _mix2(torch.arange(n, dtype=torch.int64, device=dev))
+    codes = _umod(h, 1000).to(torch.int32)
+    valid = _umod(h, 10) != 0
+    words = StringColumn.from_pylist([f"w{i:04d}" for i in range(1000)])
+    return Table([PrimitiveColumn(h, dt.int64, valid),
+                  DictionaryColumn(codes, words)],
+                 dt.Schema((dt.Field("k", dt.int64),
+                            dt.Field("d", dt.dictionary(dt.int32, dt.utf8)))))
+
+
+def check_lexsorted(idx: torch.Tensor, k, valid, codes, what: str) -> None:
+    """An O(n) check that needs no sort: idx is a permutation; the
+    gathered (key, code) pairs do not decrease, nulls first; ties keep
+    ascending indices."""
+    n = k.shape[0]
+    idx = idx.to(torch.int64)
+    if idx.shape[0] != n or int(idx.min()) < 0 or int(idx.max()) >= n:
+        raise AssertionError(f"{what}: indices out of range")
+    seen = torch.zeros(n, dtype=torch.bool, device=idx.device)
+    seen[idx] = True
+    if not bool(seen.all()):
+        raise AssertionError(f"{what}: indices are not a permutation")
+    del seen
+    kv, vv, cv = k[idx], valid[idx], codes[idx]
+    if bool((vv[:-1] & ~vv[1:]).any()):
+        raise AssertionError(f"{what}: a null after a valid key")
+    both_valid = vv[:-1] & vv[1:]
+    both_null = ~vv[:-1] & ~vv[1:]
+    keq = kv[:-1] == kv[1:]
+    ceq = cv[:-1] == cv[1:]
+    cle = cv[:-1] <= cv[1:]
+    ok = ~both_valid | (kv[:-1] < kv[1:]) | (keq & cle)
+    ok &= ~both_null | cle
+    tie = ((both_valid & keq) | both_null) & ceq
+    ok &= ~tie | (idx[:-1] < idx[1:])
+    if not bool(ok.all()):
+        raise AssertionError(f"{what}: {int((~ok).sum())} pairs out of "
+                             f"order")
+
+
+def run_config3(dev, profile: bool):
+    """Steps 22-23."""
+    from arrow_tpu_torch.ops.sort import (SortColumn, SortOptions,
+                                          lexsort_to_indices, partition,
+                                          rank, sort_table)
+    from arrow_tpu_torch.ops.take import take_table
+    n = CONFIG3_ROWS
+    what = f"config 3, {n:,} rows"
+    table = config3_table(n, dev)
+    k, d = table.column("k"), table.column("d")
+    opts = SortOptions(descending=False, nulls_first=True)
+    cols = [SortColumn(k, opts), SortColumn(d, opts)]
+    by = [("k", opts), ("d", opts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    idx = lexsort_to_indices(cols)
+    torch.cuda.synchronize()
+    lex_peak = peak_gib()
+    check_lexsorted(idx.values, k.values, k.validity, d.codes, what)
+    torch.cuda.reset_peak_memory_stats()
+    out = sort_table(table, by)
+    torch.cuda.synchronize()
+    table_peak = peak_gib()
+    want = take_table(table, idx)
+    for name in ("k", "d"):
+        _same_column(out.column(name), want.column(name),
+                     f"{what}: sort_table against take_table, column {name}")
+    del want
+    print(f"{what}: lexsort_to_indices passes the order check "
+          f"({int((~k.validity).sum()):,} nulls first); sort_table equal to "
+          f"take_table by its indices", flush=True)
+    lex_ms = time_ms(lambda: lexsort_to_indices(cols))
+    tab_ms = time_ms(lambda: sort_table(table, by))
+    print(f"{what}: lexsort_to_indices {lex_ms:.4f} ms "
+          f"({n / lex_ms * 1e3:.4g} rows/s), sort_table {tab_ms:.4f} ms "
+          f"(CUDA events, median of 5); peak device memory {lex_peak:.2f} "
+          f"/ {table_peak:.2f} GiB", flush=True)
+    if profile:
+        profile_call(f"{what} lexsort_to_indices",
+                     lambda: lexsort_to_indices(cols))
+        profile_call(f"{what} sort_table", lambda: sort_table(table, by))
+    del idx, table, cols
+
+    # step 23: rank and partition over the sorted Int64 column
+    sk = out.column("k")
+    del out
+    nulls = int((~sk.validity).sum())
+    _reset_counts()
+    with watch("compact", "sort") as calls:
+        r = rank(sk)
+    r_launches = _read_counts(f"{what} rank of the sorted keys",
+                              "compact")["compact"]
+    vals = sk.values[nulls:]
+    want_r = torch.searchsorted(vals, vals, right=True) + nulls
+    if not bool((r[:nulls] == nulls).all()) or \
+            not torch.equal(r[nulls:].to(torch.int64), want_r):
+        raise AssertionError(f"{what}: rank differs from searchsorted")
+    del want_r
+    rank_call = calls[0]
+    _reset_counts()
+    with watch("compact", "sort") as calls:
+        parts = partition([sk])
+    p_launches = _read_counts(f"{what} partition of the sorted keys",
+                              "compact")["compact"]
+    runs = int((vals[1:] != vals[:-1]).sum()) + 1 + (nulls > 0)
+    b = parts.boundaries
+    if len(parts) != runs or b[0] != 0 or b[-1] != n or \
+            (nulls and b[1] != nulls) or not (np.diff(b) > 0).all():
+        raise AssertionError(f"{what}: partition gives {len(parts)} runs, "
+                             f"the sorted keys {runs}")
+    part_call = calls[0]
+    rank_ms = time_ms(lambda: rank(sk))
+    print(f"{what}: rank of the sorted Int64 column equal to searchsorted "
+          f"({rank_ms:.4f} ms); partition {len(parts):,} runs", flush=True)
+    entries = []
+    for (args, kwargs), launches, where in (
+            (rank_call, r_launches, "rank run starts"),
+            (part_call, p_launches, "partition boundaries")):
+        keep = args[0]
+        site = _compact_site(f"{where} (positions alone), {keep.shape[0]:,} "
+                             f"sorted rows", keep, (), None,
+                             lambda keep=keep: keep.nonzero(),
+                             kwargs.get("positions"))
+        err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+        entries.append(_entry(site, launches, err))
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the group-bys and the join with "
-                         "torch.profiler")
+                    help="also trace the group-bys, the joins and "
+                         "configs 2 and 3 with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1144,6 +1479,8 @@ def main(argv=None) -> int:
     entries.append(run_config4_10m(dev, args.profile))
     entries += run_config5_resident(dev, args.profile)
     run_config5_stream(dev, args.profile)
+    entries.append(run_config2(dev, args.profile))
+    entries += run_config3(dev, args.profile)
 
     sources = {
         "compact": {"route": "cuda",

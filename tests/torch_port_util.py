@@ -65,10 +65,43 @@ def column_spec(col) -> dict:
 def port_column(col, device="cpu"):
     """The port's column holding the same buffers as a reference column
     (a StringColumn stays on the host, as the port keeps strings)."""
+    if isinstance(col, at.NullColumn):
+        from arrow_tpu_torch.core.column import NullColumn
+        return NullColumn(len(col), device)
     if isinstance(col, at.StringColumn):
         return att.StringColumn.from_pylist(col.to_pylist_host(), port_dtype(
             col.dtype))
     return att.from_numpy(device=device, **column_spec(col))
+
+
+def port_scalar(x, device="cpu"):
+    """The port's Scalar for a reference Scalar (a utf8 scalar keeps its
+    Python value)."""
+    d = port_dtype(x.dtype)
+    if not x.valid or d.is_string:
+        return att.Scalar(x.as_py(), d, x.valid)
+    v = np.asarray(x.value).reshape(1).view(d.storage_numpy())
+    return att.Scalar(torch.from_numpy(v.copy()).reshape(()).to(device), d)
+
+
+def port_datum(x, device="cpu"):
+    """A reference Column or Scalar as the port's; anything else (a
+    Python value) as it is."""
+    from arrow_tpu.core.datum import Scalar
+    if isinstance(x, at.Column):
+        return port_column(x, device)
+    if isinstance(x, Scalar):
+        return port_scalar(x, device)
+    return x
+
+
+def port_options(opt):
+    """The reference's SortOptions or CastOptions as the port's."""
+    from arrow_tpu_torch.ops.cast import CastOptions
+    from arrow_tpu_torch.ops.row_format import SortOptions
+    if hasattr(opt, "safe"):
+        return CastOptions(safe=opt.safe)
+    return SortOptions(descending=opt.descending, nulls_first=opt.nulls_first)
 
 
 def port_field(f) -> att.dtypes.Field:
@@ -96,9 +129,32 @@ def assert_same(got, want, what="") -> None:
     raise AssertionError(f"{what}: {got!r} != {want!r}")
 
 
-def assert_columns_equal(got, want, what="") -> None:
+def assert_columns_equal(got, want, what="", masks=False) -> None:
+    """Same dtype and values; with `masks`, also the same presence of a
+    validity mask."""
     assert repr(got.dtype) == repr(want.dtype), (what, got.dtype, want.dtype)
-    assert_same(got.to_pylist(), want.to_pylist(), what)
+    if got.dtype.is_temporal:       # the reference lists datetimes
+        assert_same(storage_list(got), storage_list(want), what)
+    else:
+        assert_same(got.to_pylist(), want.to_pylist(), what)
+    if masks:
+        assert (got.validity is None) == (want.validity is None), \
+            (what, "validity mask present in one only")
+
+
+def same_outcome(port_fn, ref_fn, what="", masks=False):
+    """Run both; they raise errors of the same name, or return equal
+    columns.  Returns the reference's column (None when both raised)."""
+    try:
+        want = ref_fn()
+    except Exception as e:             # the reference's error decides
+        with pytest.raises(Exception) as got:
+            port_fn()
+        assert type(got.value).__name__ == type(e).__name__, \
+            (what, got.value, e)
+        return None
+    assert_columns_equal(port_fn(), want, what, masks)
+    return want
 
 
 def assert_tables_equal(got, want) -> None:
@@ -115,6 +171,19 @@ def assert_tables_equal(got, want) -> None:
 def bits(a: np.ndarray) -> np.ndarray:
     """The raw bits of a numpy array, for bitwise comparison."""
     return a.view(f"u{a.dtype.itemsize}") if a.dtype != bool else a
+
+
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def storage_list(col) -> list:
+    """A primitive column of either package as its raw storage bits,
+    None at nulls."""
+    b = bits(_host(col.values)).tolist()
+    if col.validity is None:
+        return b
+    return [x if ok else None for x, ok in zip(b, _host(col.validity))]
 
 
 def rand_values(rng, dtype, n: int, small: bool = False) -> np.ndarray:
