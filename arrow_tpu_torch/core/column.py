@@ -10,14 +10,14 @@ arrow_tpu/core/column.py).
   - Unsigned types use signed storage of the same width (dtypes.py);
     host conversion views the bits back as the logical numpy dtype.
 
-Class map (reference -> here): PrimitiveColumn, StringColumn (host-side,
-enough to be a dictionary's values), DictionaryColumn and NullColumn.
-The other layouts join with ROADMAP A7.
+Class map (reference -> here): PrimitiveColumn, StringColumn,
+DictionaryColumn and NullColumn, each on the device the caller names.
+The other layouts join with ROADMAP A7.3.
 
-PrimitiveColumn, DictionaryColumn and NullColumn are torch pytree nodes
-(`torch.utils._pytree`), as the reference's columns are jax pytrees:
-their tensors are the leaves, their type (and a dictionary's host-side
-values) the static structure.  `fuse` captures pipelines over them.
+Every column class is a torch pytree node (`torch.utils._pytree`), as
+the reference's columns are jax pytrees: their tensors are the leaves,
+their type (and a dictionary's values) the static structure.  `fuse`
+captures pipelines over them.
 """
 
 from __future__ import annotations
@@ -128,6 +128,9 @@ class PrimitiveColumn(Column):
         return PrimitiveColumn(self.values[offset:offset + length],
                                self.dtype, v, _canonical=True)
 
+    def with_validity(self, validity: vd.Mask) -> "PrimitiveColumn":
+        return PrimitiveColumn(self.values, self.dtype, validity)
+
     def to_numpy(self) -> np.ndarray:
         """Host copy of the values in the logical numpy dtype."""
         return self.values.cpu().numpy().view(self.dtype.to_numpy())
@@ -141,14 +144,27 @@ class PrimitiveColumn(Column):
 
 
 class StringColumn(Column):
-    """Variable-length strings in the Arrow Utf8 layout (offsets (n+1,) +
-    data bytes), held on the host as CPU tensors.  In this slice it is
-    a dictionary's values; device string kernels join with ROADMAP A7."""
+    """Variable-length strings in the Arrow Utf8 layout
+    (arrow-array/src/array/byte_array.rs:87): offsets (n+1,) and data
+    bytes, both on the column's device, as the reference keeps them.
+
+    Not a hot compute layout: comparisons, sorts, group-bys and joins
+    dictionary-encode first (ops/strings.py); take, filter and concat
+    work on the buffers directly."""
 
     def __init__(self, offsets: torch.Tensor, data: torch.Tensor,
                  dtype: dt.DataType = dt.utf8, validity: vd.Mask = None):
-        self.offsets = offsets          # int32/int64, shape (n+1,), CPU
-        self.data = data                # uint8, shape (nbytes,), CPU
+        if offsets.dim() != 1 or offsets.dtype not in (torch.int32,
+                                                       torch.int64) \
+                or data.dim() != 1 or data.dtype != torch.uint8 \
+                or data.device != offsets.device:
+            raise ArrowInvalid(
+                f"a string column needs int32/int64 offsets and uint8 data "
+                f"on one device, got {offsets.dtype} on {offsets.device} "
+                f"and {data.dtype} on {data.device}")
+        _check_mask(validity, offsets.shape[0] - 1, offsets.device)
+        self.offsets = offsets          # int32 (utf8) / int64, (n+1,)
+        self.data = data                # uint8, (nbytes,)
         self.dtype = dtype
         self.validity = validity
 
@@ -159,24 +175,55 @@ class StringColumn(Column):
     def device(self) -> torch.device:
         return self.offsets.device
 
+    def slice(self, offset, length):
+        """Rows [offset, offset + length) with rebased offsets and the
+        bytes they cover (arrow_tpu/core/column.py:215-223): one host
+        read of the two byte bounds."""
+        offs = self.offsets[offset:offset + length + 1]
+        start, end = offs[[0, -1]].tolist()
+        v = None if self.validity is None \
+            else self.validity[offset:offset + length]
+        return StringColumn(offs - start, self.data[start:end], self.dtype,
+                            v)
+
+    def with_validity(self, validity: vd.Mask) -> "StringColumn":
+        return StringColumn(self.offsets, self.data, self.dtype, validity)
+
     @staticmethod
-    def from_pylist(values: Sequence, dtype: dt.DataType = dt.utf8
-                    ) -> "StringColumn":
-        offsets, chunks, mask = [0], [], []
-        for s in values:
-            if s is not None:
-                chunks.append(s.encode())
-            offsets.append(offsets[-1] + (len(chunks[-1]) if s is not None
-                                          else 0))
-            mask.append(s is not None)
-        data = np.frombuffer(b"".join(chunks), dtype=np.uint8).copy()
-        validity = None if all(mask) else torch.tensor(mask, dtype=torch.bool)
-        return StringColumn(torch.tensor(offsets, dtype=torch.int32),
-                            torch.from_numpy(data), dtype, validity)
+    def from_numpy(offsets: np.ndarray, data: np.ndarray,
+                   validity: Optional[np.ndarray] = None,
+                   dtype: dt.DataType = dt.utf8, *,
+                   device: DeviceLike = None) -> "StringColumn":
+        """A string column from host offsets and bytes, on `device`."""
+        dev = resolve_device(device)
+        offsets = np.asarray(offsets)
+        if offsets.dtype not in (np.int32, np.int64):
+            offsets = offsets.astype(np.int64)
+        mask = None if validity is None else torch.from_numpy(
+            _host_buffer(validity, bool)).to(dev)
+        return StringColumn(
+            torch.from_numpy(_host_buffer(offsets, offsets.dtype)).to(dev),
+            torch.from_numpy(_host_buffer(data, np.uint8)).to(dev), dtype,
+            mask)
+
+    @staticmethod
+    def from_pylist(values: Sequence, dtype: dt.DataType = dt.utf8, *,
+                    device: DeviceLike = None) -> "StringColumn":
+        """Python strings (None for null) on `device`."""
+        chunks = [b"" if s is None else s.encode() for s in values]
+        offsets = np.zeros(len(chunks) + 1, np.int32)
+        np.cumsum([len(c) for c in chunks], out=offsets[1:])
+        data = np.frombuffer(b"".join(chunks), dtype=np.uint8)
+        mask = np.array([s is not None for s in values], dtype=bool)
+        return StringColumn.from_numpy(offsets, data,
+                                       None if mask.all() else mask, dtype,
+                                       device=device)
 
     def to_pylist(self) -> list:
-        offs = self.offsets.numpy().tolist()
-        data = self.data.numpy().tobytes()
+        """The strings, None at nulls: one copy of the buffers to the
+        host."""
+        offs = self.offsets.cpu().numpy().tolist()
+        data = self.data.cpu().numpy().tobytes()
         mask = self._mask_host()
         return [None if mask is not None and not mask[i]
                 else data[offs[i]:offs[i + 1]].decode()
@@ -187,7 +234,8 @@ class DictionaryColumn(Column):
     """Dictionary-encoded column (arrow-array dictionary_array.rs:243).
 
     codes: integer tensor on the column's device (0 under null slots);
-    values: the dictionary, any Column (usually a host StringColumn).
+    values: the dictionary, any Column (usually a StringColumn), on the
+    codes' device when the column is built from host data.
     """
 
     def __init__(self, codes: torch.Tensor, values: Column,
@@ -219,6 +267,10 @@ class DictionaryColumn(Column):
                                 self.values, v, _canonical=True,
                                 ordered=bool(self.dtype.ordered))
 
+    def with_validity(self, validity: vd.Mask) -> "DictionaryColumn":
+        return DictionaryColumn(self.codes, self.values, validity,
+                                ordered=bool(self.dtype.ordered))
+
     def to_pylist(self) -> list:
         vals = self.values.to_pylist()
         codes = self.codes.cpu().numpy().tolist()
@@ -231,7 +283,7 @@ class NullColumn(Column):
     """All-null column (arrow-array NullArray); its validity is all
     false, on `device`."""
 
-    def __init__(self, length: int, device: DeviceLike = "cpu"):
+    def __init__(self, length: int, device: DeviceLike):
         self.dtype = dt.null
         self.validity = torch.zeros((length,), dtype=torch.bool,
                                     device=torch.device(device))
@@ -246,6 +298,9 @@ class NullColumn(Column):
     def slice(self, offset, length):
         return NullColumn(length, self.device)
 
+    def with_validity(self, validity: vd.Mask) -> "NullColumn":
+        return self
+
     def to_pylist(self) -> list:
         return [None] * len(self)
 
@@ -256,6 +311,11 @@ pytree.register_pytree_node(
     lambda leaves, d: PrimitiveColumn(leaves[0], d, leaves[1],
                                       _canonical=True),
     serialized_type_name="arrow_tpu_torch.PrimitiveColumn")
+pytree.register_pytree_node(
+    StringColumn,
+    lambda c: ([c.offsets, c.data, c.validity], c.dtype),
+    lambda leaves, d: StringColumn(leaves[0], leaves[1], d, leaves[2]),
+    serialized_type_name="arrow_tpu_torch.StringColumn")
 pytree.register_pytree_node(
     DictionaryColumn,
     lambda c: ([c.codes, c.validity], (c.values, bool(c.dtype.ordered))),
@@ -279,14 +339,17 @@ def _host_buffer(a, dtype) -> np.ndarray:
 
 def from_numpy(values: np.ndarray, validity: Optional[np.ndarray] = None,
                dtype: Optional[dt.DataType] = None,
-               device: DeviceLike = None, dictionary=None) -> Column:
+               device: DeviceLike = None, dictionary=None,
+               ordered: bool = False) -> Column:
     """Build a port column from plain numpy buffers on `device`.
 
     values: the value buffer, or the codes when `dictionary` is given;
     validity: bool array or None; dtype: logical type (inferred from the
-    numpy dtype when None); dictionary: the dictionary's values, as a
-    Column or a Python list.  This is the port's way in for the
-    reference's state: a table's buffers, walked to numpy.
+    numpy dtype when None); dictionary: the dictionary's values, a Column
+    (its type is kept) or a Python list (built on `device`, its type
+    inferred); ordered: the dictionary type's ordered flag.  This is the
+    port's way in for the reference's state: a table's buffers, walked
+    to numpy.
     """
     dev = resolve_device(device)
     values = np.asarray(values)
@@ -294,9 +357,9 @@ def from_numpy(values: np.ndarray, validity: Optional[np.ndarray] = None,
         _host_buffer(validity, bool)).to(dev)
     if dictionary is not None:
         if not isinstance(dictionary, Column):
-            dictionary = column(list(dictionary), device="cpu")
+            dictionary = column(list(dictionary), device=dev)
         codes = torch.from_numpy(_host_buffer(values, values.dtype)).to(dev)
-        return DictionaryColumn(codes, dictionary, mask)
+        return DictionaryColumn(codes, dictionary, mask, ordered=ordered)
     ldt = dtype or dt.from_numpy_dtype(values.dtype)
     if not ldt.is_primitive:
         raise ArrowNotImplementedError(f"from_numpy for {ldt!r}")
@@ -309,8 +372,8 @@ def column(data, dtype: Optional[dt.DataType] = None, validity=None, *,
            device: DeviceLike = None) -> Column:
     """Build a Column from a Python list or a numpy array, on `device`.
 
-    Python lists may contain None (nulls).  Strings become a host
-    StringColumn; other layouts join with ROADMAP A7.
+    Python lists may contain None (nulls).  Strings become a
+    StringColumn on `device`; other layouts join with ROADMAP A7.3.
     """
     if isinstance(data, Column):
         return data
@@ -339,7 +402,7 @@ def _column_from_pylist(values: list, dtype, validity, device) -> Column:
         else:
             raise ArrowTypeError(f"cannot infer dtype from {type(v0)}")
     if dtype.is_string:
-        return StringColumn.from_pylist(values, dtype)
+        return StringColumn.from_pylist(values, dtype, device=device)
     if not dtype.is_primitive:
         raise ArrowNotImplementedError(f"column of {dtype!r} (ROADMAP A7)")
     if validity is None and len(non_null) != len(values):

@@ -2,7 +2,8 @@
 (counterpart of arrow_tpu/core/datum.py; arrow-array/src/scalar.rs:78).
 
 A scalar is a 0-d tensor of its type's storage (numeric, bool and
-temporal types alike; a utf8 scalar keeps its Python str).  A scalar on
+temporal types alike; a utf8 or dictionary scalar keeps its Python
+value).  A scalar on
 the host meets a column on the card as a one-element fill on that
 device, expanded without copying: no copy from host memory, so a
 pipeline that builds scalars from Python values can be captured by
@@ -27,11 +28,12 @@ __all__ = ["Scalar", "Datum", "scalar", "as_datum", "broadcast_pair"]
 
 class Scalar:
     """A single (possibly null) value with a logical type.  `value` is a
-    0-d tensor of the type's storage dtype (a Python str, or None when
-    null, for utf8); the null flag is `valid` / `as_py()`."""
+    0-d tensor of the type's storage dtype (the Python value, or None
+    when null, for utf8 and dictionary types); the null flag is `valid`
+    / `as_py()`."""
 
     def __init__(self, value, dtype: dt.DataType, valid: bool = True):
-        if dtype.is_string:
+        if dtype.is_string or dtype.is_dictionary:
             value = value if valid else None
         elif not isinstance(value, torch.Tensor):
             host = np.asarray(0 if not valid else value, dtype=dtype.to_numpy())
@@ -45,7 +47,7 @@ class Scalar:
         """Host value (None when null)."""
         if not self.valid:
             return None
-        if self.dtype.is_string:
+        if self.dtype.is_string or self.dtype.is_dictionary:
             return self.value
         return self.value.cpu().numpy().view(self.dtype.to_numpy()).item()
 

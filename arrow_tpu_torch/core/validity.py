@@ -47,11 +47,19 @@ def valid_count(mask: Mask, length: int):
     return mask.sum(dtype=torch.int64)
 
 
+# torch's uint16/32/64 lack `where` in some releases: select their bits
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+           torch.uint64: torch.int64}
+
+
 def canonicalize(values: torch.Tensor, mask: Mask) -> torch.Tensor:
     """Zero values under null slots, so (values, validity) pairs are
     bitwise-deterministic (arrow_tpu/core/validity.py:57)."""
     if mask is None:
         return values
+    signed = _SIGNED.get(values.dtype)
+    if signed is not None:
+        return canonicalize(values.view(signed), mask).view(values.dtype)
     return torch.where(mask, values, torch.zeros((), dtype=values.dtype,
                                                  device=values.device))
 

@@ -148,11 +148,12 @@ def _all_null(to: dt.DataType, n: int, device) -> Column:
     if to.is_dictionary:
         return DictionaryColumn(
             torch.zeros((n,), dtype=to.index_type.to_torch(), device=device),
-            _all_null(to.value_type, 1, "cpu"), mask)
+            _all_null(to.value_type, 1, device), mask)
     if to.is_string:
-        return StringColumn(torch.zeros((n + 1,), dtype=torch.int32),
-                            torch.zeros((0,), dtype=torch.uint8), to,
-                            None if mask is None else mask.cpu())
+        return StringColumn(torch.zeros((n + 1,), dtype=torch.int32,
+                                        device=device),
+                            torch.zeros((0,), dtype=torch.uint8,
+                                        device=device), to, mask)
     if not to.is_primitive:
         raise _later(f"null -> {to!r}")
     return PrimitiveColumn(torch.zeros((n,), dtype=to.to_torch(),

@@ -1,24 +1,40 @@
-"""concat: append columns and tables (counterpart of
-arrow_tpu/ops/concat.py: concat and concat_tables, concat.py:39-202,
-238-249).
+"""concat and interleave (counterpart of arrow_tpu/ops/concat.py:
+concat, _concat_dictionaries_merged, concat_tables, interleave and
+interleave_tables, concat.py:39-92,203-269).
 
-One torch.cat per buffer.  Primitive columns, and dictionary columns
-that share one dictionary object, are covered; every other layout, and
-dictionaries that would need merging, join with ROADMAP A7.
+One torch.cat per buffer, on the columns' device:
+  null        -> a null column of the summed length
+  primitive   -> values and validity concatenated
+  string      -> each column's offsets shifted by the bytes before it
+                 (on the device, no sync), the bytes concatenated
+  dictionary  -> one shared values object: the codes concatenated, the
+                 ordered flag kept; values that differ: the values
+                 concatenated and each column's codes shifted into them
+                 (repeated values stay repeated and the ordered flag is
+                 dropped, as in the reference), or, when the combined
+                 values pass the index type's range, the values
+                 deduplicated in first-occurrence order and the codes
+                 remapped (merge_dictionary_values, concat.rs:112)
+interleave is a concat and one take by the flat row of each (array,
+row) pair (interleave.rs:70).  Nested layouts join with ROADMAP A7.3.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .. import dtypes as dt
 from ..core import validity as vd
-from ..core.column import Column, DictionaryColumn, PrimitiveColumn
+from ..core.column import (Column, DictionaryColumn, NullColumn,
+                           PrimitiveColumn, StringColumn)
 from ..core.table import Table
 from ..errors import ArrowInvalid, ArrowNotImplementedError, ArrowTypeError
+from .take import take
 
-__all__ = ["concat", "concat_tables"]
+__all__ = ["concat", "concat_tables", "interleave", "interleave_tables"]
 
 
 def _concat_masks(cols: Sequence[Column]) -> vd.Mask:
@@ -37,19 +53,100 @@ def concat(cols: Sequence[Column]) -> Column:
     c0 = cols[0]
     if len(cols) == 1:
         return c0
+    if isinstance(c0, NullColumn):
+        return NullColumn(sum(len(c) for c in cols), c0.device)
     if isinstance(c0, PrimitiveColumn):
         return PrimitiveColumn(torch.cat([c.values for c in cols]),
                                c0.dtype, _concat_masks(cols),
                                _canonical=True)
-    if isinstance(c0, DictionaryColumn) and \
-            all(c.values is c0.values for c in cols[1:]):
+    if isinstance(c0, StringColumn):
+        return _concat_strings(cols)
+    if isinstance(c0, DictionaryColumn):
+        return _concat_dictionaries(cols)
+    raise ArrowNotImplementedError(
+        f"concat of {type(c0).__name__} joins with ROADMAP A7.3")
+
+
+def _concat_strings(cols: Sequence[StringColumn]) -> StringColumn:
+    """Offsets shifted by the byte counts before them, on the device."""
+    c0 = cols[0]
+    ends = torch.stack([c.offsets[-1].to(torch.int64) for c in cols])
+    bases = torch.cumsum(ends, 0) - ends
+    offsets = [c0.offsets] + [(c.offsets[1:] + b).to(c0.offsets.dtype)
+                              for c, b in zip(cols[1:], bases[1:])]
+    return StringColumn(torch.cat(offsets), torch.cat([c.data for c in cols]),
+                        c0.dtype, _concat_masks(cols))
+
+
+def _concat_dictionaries(cols: Sequence[DictionaryColumn]
+                         ) -> DictionaryColumn:
+    c0 = cols[0]
+    if all(c.values is c0.values for c in cols[1:]):
+        # one shared dictionary: concat the codes, keep the dictionary
+        # and its ordered flag
         return DictionaryColumn(torch.cat([c.codes for c in cols]),
                                 c0.values, _concat_masks(cols),
                                 _canonical=True,
                                 ordered=bool(c0.dtype.ordered))
-    what = "dictionaries that differ" if isinstance(c0, DictionaryColumn) \
-        else type(c0).__name__
-    raise ArrowNotImplementedError(f"concat of {what} joins with ROADMAP A7")
+    code_max = dt.integer_bounds(c0.dtype.index_type)[1]
+    if sum(len(c.values) for c in cols) - 1 > code_max:
+        return _concat_dictionaries_merged(cols, code_max)
+    shifted, base = [], 0
+    for c in cols:      # through int64: torch cannot add uint16/32 codes
+        shifted.append((c.codes.to(torch.int64) + base).to(c.codes.dtype))
+        base += len(c.values)
+    return DictionaryColumn(torch.cat(shifted),
+                            concat([c.values for c in cols]),
+                            _concat_masks(cols))
+
+
+def _first_occurrence(values: Column) -> np.ndarray:
+    """For each slot of `values`, the slot of the first value equal to it
+    (nulls equal each other), as the reference's dict of Python values
+    gives it."""
+    if isinstance(values, StringColumn):
+        from .strings import _host_buffers
+        from ..utils.hostcodec import intern_varlen
+        codes, uniq = intern_varlen(*_host_buffers(values))
+        key = codes.astype(np.int64)
+        if values.validity is not None:
+            key[~values.validity.cpu().numpy()] = -1
+        _, first, inv = np.unique(key, return_index=True, return_inverse=True)
+        return first[inv.reshape(-1)]
+    # other value types: a host pass over the values, as the reference's
+    seen, out = {}, []
+    for i, v in enumerate(values.to_pylist()):
+        out.append(seen.setdefault(v, i))
+    return np.asarray(out, np.int64)
+
+
+def _concat_dictionaries_merged(cols: Sequence[DictionaryColumn],
+                                code_max: int) -> DictionaryColumn:
+    """Deduplicate the combined values in first-occurrence order and remap
+    each column's codes (concat.py:203-235, merge_dictionary_values,
+    arrow-select/src/dictionary.rs:177): a host pass over the values
+    only; the codes remap on the device."""
+    values = concat([c.values for c in cols])
+    first = _first_occurrence(values)
+    keep = np.nonzero(first == np.arange(len(first)))[0]
+    if len(keep) - 1 > code_max:
+        raise ArrowInvalid(
+            f"dictionary key space overflow: {len(keep)} merged values "
+            f"exceed {cols[0].dtype.index_type!r}")
+    new_code = np.empty(len(first), np.int64)
+    new_code[keep] = np.arange(len(keep))
+    remap = torch.from_numpy(new_code[first]).to(cols[0].device)
+    merged = take(values, PrimitiveColumn(
+        torch.from_numpy(keep).to(values.device), dt.int64))
+    shifted, base = [], 0
+    for c in cols:
+        m = max(len(c.values), 1)
+        local = remap[base:base + len(c.values)]
+        local = local if len(local) else remap.new_zeros(1)
+        shifted.append(local[c.codes.to(torch.int64).clamp(0, m - 1)]
+                       .to(c.codes.dtype))
+        base += len(c.values)
+    return DictionaryColumn(torch.cat(shifted), merged, _concat_masks(cols))
 
 
 def concat_tables(tables: Sequence[Table]) -> Table:
@@ -61,5 +158,27 @@ def concat_tables(tables: Sequence[Table]) -> Table:
         if t.schema.names != t0.schema.names:
             raise ArrowInvalid("schema mismatch in concat_tables")
     cols = tuple(concat([t.columns[i] for t in tables])
+                 for i in range(len(t0.columns)))
+    return Table(cols, t0.schema, _validated=True)
+
+
+def interleave(cols: Sequence[Column],
+               indices: Sequence[Tuple[int, int]]) -> Column:
+    """A column of the rows picked by (array index, row index) pairs
+    (interleave.rs:70): a concat, then one take."""
+    offsets = np.zeros(len(cols) + 1, np.int64)
+    np.cumsum([len(c) for c in cols], out=offsets[1:])
+    pairs = np.asarray(indices, np.int64).reshape(-1, 2)
+    flat = offsets[pairs[:, 0]] + pairs[:, 1]
+    merged = concat(list(cols)) if len(cols) > 1 else cols[0]
+    return take(merged, PrimitiveColumn(
+        torch.from_numpy(flat).to(merged.device), dt.int64))
+
+
+def interleave_tables(tables: Sequence[Table],
+                      indices: Sequence[Tuple[int, int]]) -> Table:
+    """interleave_record_batch (interleave.rs:359)."""
+    t0 = tables[0]
+    cols = tuple(interleave([t.columns[i] for t in tables], indices)
                  for i in range(len(t0.columns)))
     return Table(cols, t0.schema, _validated=True)

@@ -9,10 +9,11 @@ arrow_tpu/ops/filter.py; arrow-select/src/filter.rs).
 `FilterPredicate` is computed once and reused across all columns of a
 batch (FilterBuilder::optimize, filter.rs:171-189), and every value and
 validity buffer of a batch rides ONE compaction (kernels/compact.py).
-The eager API syncs the popcount (one scalar); `filter_static` /
-`filter_static_multi` return full-length outputs and a device count
-without a sync.  Layouts that need `take` (strings, nested) join with
-ROADMAP A7 and raise here.
+A string column is gathered by the kept rows' positions (ops/take.py),
+which that same compaction emits; a null column takes the count
+(filter.py:103-165).  The eager API syncs the popcount (one scalar);
+`filter_static` / `filter_static_multi` return full-length outputs and
+a device count without a sync.  Nested layouts join with ROADMAP A7.3.
 """
 
 from __future__ import annotations
@@ -21,12 +22,15 @@ from typing import Tuple
 
 import torch
 
+from .. import dtypes as dt
 from ..config import sync_guard
-from ..core.column import Column, DictionaryColumn, PrimitiveColumn
+from ..core.column import (Column, DictionaryColumn, NullColumn,
+                           PrimitiveColumn, StringColumn)
 from ..core.datum import as_datum
 from ..core.table import Table
 from ..errors import ArrowInvalid, ArrowNotImplementedError
 from ..kernels.compact import compact
+from .take import take
 
 __all__ = ["FilterPredicate", "compact_by_mask", "filter", "filter_table",
            "filter_static", "filter_static_multi"]
@@ -60,9 +64,52 @@ def compact_by_mask(keep: torch.Tensor, count: int, *arrays: torch.Tensor):
     return tuple(outs)
 
 
-def _layout_error(c: Column) -> ArrowNotImplementedError:
-    return ArrowNotImplementedError(
-        f"filter of {type(c).__name__} needs take (ROADMAP A7)")
+def _fixed(c: Column):
+    """The fixed-width buffers of a column the compaction carries: values
+    or codes, then validity; None for a layout that is gathered."""
+    if isinstance(c, PrimitiveColumn):
+        data = c.values
+    elif isinstance(c, DictionaryColumn):
+        data = c.codes
+    elif isinstance(c, (StringColumn, NullColumn)):
+        return None
+    else:
+        raise ArrowNotImplementedError(
+            f"filter of {type(c).__name__} joins with ROADMAP A7.3")
+    return (data,) if c.validity is None else (data, c.validity)
+
+
+def _filter_columns(columns, pred: FilterPredicate):
+    """Every column's kept rows, from ONE K1 launch over the batch's
+    fixed-width buffers, with the kept rows' positions when a string
+    column needs them (filter.py:103-165)."""
+    fixed = [_fixed(c) for c in columns]
+    buffers = [b for f in fixed if f is not None for b in f]
+    strings = any(isinstance(c, StringColumn) for c in columns)
+    outs = iter(())
+    if buffers or strings:
+        outs, _ = compact(pred.keep, buffers, out_cap=pred.count,
+                          positions=torch.int64 if strings else None)
+        outs = iter(outs)
+    cols = []
+    for c, f in zip(columns, fixed):
+        if f is None:
+            cols.append(None)
+            continue
+        vals = next(outs)
+        validity = None if c.validity is None else next(outs)
+        cols.append(PrimitiveColumn(vals, c.dtype, validity, _canonical=True)
+                    if isinstance(c, PrimitiveColumn) else
+                    DictionaryColumn(vals, c.values, validity,
+                                     _canonical=True,
+                                     ordered=bool(c.dtype.ordered)))
+    positions = next(outs, None)
+    for i, c in enumerate(columns):
+        if isinstance(c, StringColumn):
+            cols[i] = take(c, PrimitiveColumn(positions, dt.int64))
+        elif isinstance(c, NullColumn):
+            cols[i] = NullColumn(pred.count, c.device)
+    return cols
 
 
 def filter(values: Column, predicate) -> Column:
@@ -70,50 +117,16 @@ def filter(values: Column, predicate) -> Column:
     pred = _predicate(predicate)
     if len(values) != pred.keep.shape[0]:
         raise ArrowInvalid("filter length mismatch")
-    if isinstance(values, PrimitiveColumn):
-        data = values.values
-    elif isinstance(values, DictionaryColumn):
-        data = values.codes
-    else:
-        raise _layout_error(values)
-    ins = (data,) if values.validity is None else (data, values.validity)
-    outs = compact_by_mask(pred.keep, pred.count, *ins)
-    validity = None if values.validity is None else outs[1]
-    if isinstance(values, PrimitiveColumn):
-        return PrimitiveColumn(outs[0], values.dtype, validity,
-                               _canonical=True)
-    return DictionaryColumn(outs[0], values.values, validity,
-                            _canonical=True,
-                            ordered=bool(values.dtype.ordered))
+    return _filter_columns([values], pred)[0]
 
 
 def filter_table(table: Table, predicate) -> Table:
     """filter_record_batch (filter.rs:171): one predicate, all columns,
-    every buffer of the batch in ONE compaction."""
+    every fixed-width buffer of the batch and the positions the string
+    columns need in ONE compaction."""
     pred = _predicate(predicate)
-    buffers = []
-    for c in table.columns:
-        if isinstance(c, PrimitiveColumn):
-            buffers.append(c.values)
-        elif isinstance(c, DictionaryColumn):
-            buffers.append(c.codes)
-        else:
-            raise _layout_error(c)
-        if c.validity is not None:
-            buffers.append(c.validity)
-    outs = iter(compact_by_mask(pred.keep, pred.count, *buffers))
-    cols = []
-    for c in table.columns:
-        vals = next(outs)
-        validity = None if c.validity is None else next(outs)
-        if isinstance(c, PrimitiveColumn):
-            cols.append(PrimitiveColumn(vals, c.dtype, validity,
-                                        _canonical=True))
-        else:
-            cols.append(DictionaryColumn(vals, c.values, validity,
-                                         _canonical=True,
-                                         ordered=bool(c.dtype.ordered)))
-    return Table(tuple(cols), table.schema, _validated=True)
+    return Table(tuple(_filter_columns(table.columns, pred)), table.schema,
+                 _validated=True)
 
 
 def filter_static(values: torch.Tensor, keep: torch.Tensor

@@ -29,12 +29,16 @@ The <= G_MAX group-sized results of plans 1-2 are ordered like the sort
 plan's: ascending, nulls first, first key most significant; unoccupied
 combinations are dropped (groupby.py:616-627).
 
+A string key is dictionary-encoded (ops/strings.py), so it takes the
+dictionary plan and K2 like a dictionary key; its output keys are
+decoded back to strings.  Min and max of strings and dictionaries
+aggregate a uint64 rank proxy of the values and decode each group's
+winning rank (_group_by_string_minmax, groupby.py:2131-2187).
+
 Aggregate null semantics (SQL/DataFusion): sum/min/max/mean skip nulls
 and a group with no valid input yields null; count counts valid rows;
 count_all counts rows.  Float min/max order NaN above everything; float
-sums are IEEE-honest (float_group_sums).  Min and max of strings and
-dictionaries (_group_by_string_minmax, groupby.py:2131) join with
-ROADMAP A7.
+sums are IEEE-honest (float_group_sums).
 """
 
 from __future__ import annotations
@@ -57,8 +61,10 @@ from ..kernels.compact import compact
 from ..kernels.groupagg import (G_MAX, MinMaxCol, SumCol, grouped_aggregate,
                                 row_codes)
 from . import row_format as rf
+from .cast import cast
 from .concat import concat_tables
 from .row_format import KeyRange, SortKey, dictionary_value_ranks
+from .strings import dictionary_decode, dictionary_encode
 from .take import take
 
 __all__ = ["group_by", "AggSpec", "GroupByAccumulator", "segment_aggregate",
@@ -151,20 +157,20 @@ def _group_by(table: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
             raise ArrowInvalid(f"unknown aggregate {a.op}")
     if not keys:
         raise ArrowInvalid("group_by needs at least one key")
+    str_mm = [i for i, a in enumerate(aggs) if a.op in ("min", "max")
+              and isinstance(table.column(a.column),
+                             (StringColumn, DictionaryColumn))]
+    if str_mm and table.num_rows:
+        return _group_by_string_minmax(table, keys, aggs, str_mm, chunk)
     key_cols = [table.column(k) for k in keys]
     for c in key_cols:
         rf.key_kind(c)                    # raises on layouts still to port
-        if isinstance(c, StringColumn):
-            raise ArrowNotImplementedError(
-                "group_by: string keys join with ROADMAP A7")
     if table.num_rows == 0:
         return _empty_group_by(table, keys, aggs)
+    if any(isinstance(c, StringColumn) for c in key_cols):
+        return _group_by_string_keys(table, keys, aggs, chunk)
     for a in aggs:
         src = table.column(a.column)
-        if a.op in ("min", "max") and \
-                isinstance(src, (StringColumn, DictionaryColumn)):
-            raise ArrowNotImplementedError(
-                f"group_by: {a.op} over {src.dtype!r} joins with ROADMAP A7")
         if a.op in ("sum", "mean") and not isinstance(src, PrimitiveColumn):
             raise ArrowNotImplementedError(
                 f"group_by: {a.op} over {type(src).__name__}")
@@ -181,6 +187,71 @@ def _group_by(table: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
     return _sort_plan(table, key_cols, keys, aggs, key_ranges, val_ranges)
 
 
+def _group_by_string_keys(table: Table, keys, aggs, chunk: bool) -> Table:
+    """group_by with each string key dictionary-encoded (its codes are its
+    ranks, so the dictionary plan and K2 take it), the output keys
+    decoded back to strings under the key's own field."""
+    cols, fields = list(table.columns), list(table.schema.fields)
+    encoded = []
+    for k in dict.fromkeys(keys):
+        i = table.schema.index_of(k)
+        if isinstance(cols[i], StringColumn):
+            cols[i] = dictionary_encode(cols[i])
+            fields[i] = dt.Field(k, cols[i].dtype, fields[i].nullable)
+            encoded.append(k)
+    out = _group_by(Table(cols, dt.Schema(tuple(fields))), keys, aggs,
+                    chunk)
+    cols, fields = list(out.columns), list(out.schema.fields)
+    for i, k in enumerate(keys):
+        if k in encoded:
+            cols[i] = dictionary_decode(cols[i])
+            fields[i] = table.schema.field(k)
+    return Table(cols, dt.Schema(tuple(fields)))
+
+
+def _group_by_string_minmax(table: Table, keys, aggs, str_mm,
+                            chunk: bool) -> Table:
+    """MIN/MAX over string and dictionary columns
+    (groupby.py:2131-2187): group the uint64 rank key of the values
+    (row_format.encode_value_key: rank order is byte order) with every
+    other aggregate, then map each group's winning rank back to a
+    dictionary slot and take the value.  The recursive group_by sees
+    only primitive sources, so K2 takes the min/max."""
+    proxies = {}         # source column -> (proxy name, dictionary)
+    cols, fields = list(table.columns), list(table.schema.fields)
+    new_aggs = list(aggs)
+    for i in str_mm:
+        a = aggs[i]
+        if a.column not in proxies:
+            dcol = dictionary_encode(table.column(a.column))
+            key, valid = rf.encode_value_key(dcol)
+            pname = f"__strmm_{a.column}"
+            cols.append(PrimitiveColumn(key, dt.uint64, valid))
+            fields.append(dt.Field(pname, dt.uint64))
+            proxies[a.column] = (pname, dcol)
+        new_aggs[i] = AggSpec(proxies[a.column][0], a.op, a.out_name)
+    res = _group_by(Table(cols, dt.Schema(tuple(fields))), keys, new_aggs,
+                    chunk)
+    out_cols, out_fields = list(res.columns), list(res.schema.fields)
+    nkeys = len(keys)
+    for i in str_mm:
+        a = aggs[i]
+        dcol = proxies[a.column][1]
+        ranks, dict_null = dictionary_value_ranks(dcol.values)
+        valid = np.nonzero(~dict_null)[0]
+        nranks = int(ranks[valid].max()) + 1 if len(valid) else 0
+        # rank -> the first valid slot holding it
+        rank_to_slot = np.zeros(max(nranks, 1), np.int64)
+        rank_to_slot[ranks[valid][::-1].astype(np.int64)] = valid[::-1]
+        won = res.columns[nkeys + i]
+        slots = torch.from_numpy(rank_to_slot).to(won.device)[
+            won.values.clamp(0, max(nranks - 1, 0))]
+        out = take(dcol.values, PrimitiveColumn(slots, dt.int64))
+        out_cols[nkeys + i] = out.with_validity(won.validity)
+        out_fields[nkeys + i] = dt.Field(a.out_name, out.dtype)
+    return Table(tuple(out_cols), dt.Schema(tuple(out_fields)))
+
+
 def _empty_group_by(table: Table, keys, aggs) -> Table:
     """The n == 0 result: empty keys and aggregates whose fields are all
     nullable, as the reference's _empty_agg gives them
@@ -193,7 +264,7 @@ def _empty_group_by(table: Table, keys, aggs) -> Table:
         if out_dt.is_string or out_dt.name == "dictionary":
             if out_dt.name == "dictionary":
                 out_dt = out_dt.value_type
-            col = StringColumn.from_pylist([], out_dt)
+            col = StringColumn.from_pylist([], out_dt, device=src.device)
         else:
             col = PrimitiveColumn(torch.zeros(0, dtype=out_dt.to_torch(),
                                               device=src.device), out_dt)
@@ -659,17 +730,6 @@ def _sort_plan(table: Table, key_cols, keys, aggs, key_ranges,
 
 # ---- streaming two-level aggregation ---------------------------------------
 
-def _widen_column(c: Column, to: dt.DataType) -> PrimitiveColumn:
-    """Widening cast of a primitive column to int64 (bool, integers) or
-    float64 (floats), validity kept; the full ops/cast.py is ROADMAP A3."""
-    if not isinstance(c, PrimitiveColumn):
-        raise ArrowNotImplementedError(
-            f"widening {type(c).__name__} joins with ROADMAP A3")
-    vals = c.values.to(torch.float64) if to.is_floating \
-        else dt.widen(c.values, c.dtype)
-    return PrimitiveColumn(vals, to, c.validity, _canonical=True)
-
-
 class GroupByAccumulator:
     """Streaming two-level grouped aggregation (groupby.py:2207-2397):
     each update() chunk aggregates locally with decomposed aggregates
@@ -749,7 +809,7 @@ class GroupByAccumulator:
         wide_specs = self._plan[2]
         if not wide_specs:
             return table
-        extra = {nm: _widen_column(table.column(src), d)
+        extra = {nm: cast(table.column(src), d)
                  for nm, (src, d) in wide_specs.items()}
         return Table(
             tuple(table.columns) + tuple(extra.values()),
@@ -836,6 +896,11 @@ class GroupByAccumulator:
                     vd.canonicalize(c.values, c.validity), dt.int64,
                     _canonical=True))
                 fields.append(dt.Field(name, dt.int64, nullable=False))
+            elif isinstance(out.column(name), StringColumn):
+                # min/max of strings: the reference's finalize reads
+                # `.values` of this column and raises (ROADMAP C8)
+                out_cols.append(out.column(name))
+                fields.append(dt.Field(name, out.column(name).dtype))
             else:
                 c = out.column(name)
                 out_cols.append(PrimitiveColumn(

@@ -51,10 +51,11 @@ from ..core import validity as vd
 from ..core.column import (Column, DictionaryColumn, PrimitiveColumn,
                            StringColumn)
 from ..core.table import Table
-from ..errors import ArrowInvalid, ArrowNotImplementedError
+from ..errors import ArrowInvalid
 from ..kernels.compact import compact
 from .row_format import encode_value_key
-from .strings import _as_dict, _dict_slot_validity, merged_string_ranks
+from .strings import (_dict_slot_validity, dictionary_encode,
+                      merged_string_ranks)
 from .take import take
 
 __all__ = ["join", "join_indices", "HashJoiner", "combined_keys"]
@@ -90,11 +91,10 @@ def _fold(keys: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def _device(*tables: Table) -> torch.device:
-    """The device of the tables' tensors (strings live on the host)."""
+    """The device of the tables' tensors."""
     for t in tables:
         for c in t.columns:
-            if not isinstance(c, StringColumn):
-                return c.device
+            return c.device
     return torch.device("cpu")
 
 
@@ -111,7 +111,7 @@ def _ranks_of(ranks: np.ndarray, d: DictionaryColumn) -> torch.Tensor:
     return lut[d.codes.to(torch.int64)]
 
 
-def _co_encode(lcol: Column, rcol: Column, device: torch.device):
+def _co_encode(lcol: Column, rcol: Column):
     """Order keys of one pair of key columns in a shared domain
     (join.py:50-75): primitive keys by the global transform, string and
     dictionary keys by ranks over both sides' merged values."""
@@ -120,7 +120,7 @@ def _co_encode(lcol: Column, rcol: Column, device: torch.device):
         lk, lv = encode_value_key(lcol)
         rk, rv = encode_value_key(rcol)
         return lk, lv, rk, rv
-    dl, dr = _as_dict(lcol, device), _as_dict(rcol, device)
+    dl, dr = dictionary_encode(lcol), dictionary_encode(rcol)
     if not (isinstance(dl.values, StringColumn)
             and isinstance(dr.values, StringColumn)):
         raise ArrowInvalid("string join keys require string dictionaries")
@@ -129,8 +129,7 @@ def _co_encode(lcol: Column, rcol: Column, device: torch.device):
             _ranks_of(rrank, dr), _dict_slot_validity(dr))
 
 
-def combined_keys(lcols: Sequence[Column], rcols: Sequence[Column],
-                  device: torch.device):
+def combined_keys(lcols: Sequence[Column], rcols: Sequence[Column]):
     """(lkey, lvalid, rkey, rvalid, lkeys, rkeys): one u64 key per row
     of each side over all key columns (join.py:78-104), the rows' key
     validity (None: all valid; a null in any key column is null) and
@@ -139,7 +138,7 @@ def combined_keys(lcols: Sequence[Column], rcols: Sequence[Column],
     lvalid: vd.Mask = None
     rvalid: vd.Mask = None
     for lc, rc in zip(lcols, rcols):
-        lk, lv, rk, rv = _co_encode(lc, rc, device)
+        lk, lv, rk, rv = _co_encode(lc, rc)
         lkeys.append(lk)
         rkeys.append(rk)
         lvalid = vd.union(lvalid, lv)
@@ -339,8 +338,7 @@ def join_indices(left: Table, right: Table, on: Sequence[str],
     _check_rows(n_r, "build")
     multi = len(on) > 1
     lkey, lvalid, rkey, rvalid, lkeys, rkeys = combined_keys(
-        [left.column(c) for c in on], [right.column(c) for c in right_on],
-        dev)
+        [left.column(c) for c in on], [right.column(c) for c in right_on])
     kmin, kmax, bmin, bmax = _key_range_scan(lkey, lvalid, rkey, rvalid)
     span = bmax - bmin + 1 if bmin <= bmax else 0
     if not multi and _index_fits(span, n_r):
@@ -459,10 +457,6 @@ def join(left: Table, right: Table, on: Sequence[str], how: str = "inner",
     columns that are not keys (nullable; a clashing name takes
     `suffix`).  Semi and anti joins return the left columns only."""
     right_on_l = list(right_on or on)
-    for c in (*left.columns, *right.columns):
-        if isinstance(c, StringColumn):
-            raise ArrowNotImplementedError(
-                "join: string columns in the output join with ROADMAP A7")
     li, ri = join_indices(left, right, on, how, right_on)
     cols: List[Column] = [take(c, li) for c in left.columns]
     fields = list(left.schema.fields)

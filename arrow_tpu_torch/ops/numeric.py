@@ -1,14 +1,24 @@
-"""Arithmetic kernels: add/sub/mul with checked and wrapping variants
-(counterpart of arrow_tpu/ops/numeric.py; arrow-arith/src/numeric.rs).
+"""Arithmetic kernels: add/sub/mul/div/rem/neg with checked and wrapping
+variants (counterpart of arrow_tpu/ops/numeric.py; arrow-arith/src/
+numeric.rs).
 
   - both operands share a primitive numeric type (cast first);
   - `add` etc. are CHECKED: integer overflow on a valid slot raises
     ArithmeticOverflow; `add_wrapping` etc. wrap two's-complement;
-  - float arithmetic is IEEE.
+  - integer division truncates toward zero and the remainder takes the
+    dividend's sign (Rust's / and %: torch.div(rounding_mode="trunc")
+    and torch.fmod, never // or torch.remainder); a zero divisor, MIN /
+    -1 and MIN % -1 on a valid slot raise DivideByZero.  The divisor is
+    masked to 1 at those slots before dividing: CUDA integer division by
+    zero does not trap, and INT64_MIN / -1 traps on the CPU;
+  - float arithmetic is IEEE; float rem is the truncated fmod; the NaNs
+    of div and rem carry the bits x86 gives them (`_x86_nans`).
 
-Unsigned overflow checks compare through the sign-flip map, because
-uint16/32/64 live on signed storage (dtypes.py).  Decimal and temporal
-arithmetic join with ROADMAP A7.
+Unsigned values live on signed storage (dtypes.py): overflow checks
+compare through the sign-flip map, uint8/16/32 divide as int64, and
+uint64 divides exactly on its bits (`_udiv64`).  The decimal and
+temporal arms wait for core/nested.py and ops/temporal.py (ROADMAP
+A7.2-A7.3) and raise ArrowNotImplementedError.
 """
 
 from __future__ import annotations
@@ -17,18 +27,28 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
+from ..core.column import PrimitiveColumn
 from ..core.datum import Datum, as_datum
-from ..errors import ArithmeticOverflow, ArrowTypeError
-from .arity import binary, binary_with_flag, check_flag
+from ..errors import (ArithmeticOverflow, ArrowNotImplementedError,
+                      ArrowTypeError, DivideByZero)
+from .arity import binary, binary_with_flag, check_flag, unary
 
-__all__ = ["add", "sub", "mul", "add_wrapping", "sub_wrapping",
-           "mul_wrapping"]
+__all__ = ["add", "sub", "mul", "div", "rem", "neg", "add_wrapping",
+           "sub_wrapping", "mul_wrapping", "neg_wrapping"]
+
+
+def _temporal_later(what: str) -> ArrowNotImplementedError:
+    return ArrowNotImplementedError(
+        f"{what}: temporal arithmetic joins with ROADMAP A7.2 "
+        "(ops/temporal.py)")
 
 
 def _resolve(op: str, lhs: Datum, rhs: Datum) -> dt.DataType:
     l, r = as_datum(lhs).dtype, as_datum(rhs).dtype
     if l == r and l.is_numeric:
         return l
+    if l.is_temporal or r.is_temporal:
+        raise _temporal_later(f"{op} of {l!r} and {r!r}")
     raise ArrowTypeError(f"cannot {op} {l!r} and {r!r}")
 
 
@@ -102,6 +122,136 @@ def _wrapping(op: str, fn):
     kernel.__name__ = f"{op}_wrapping"
     kernel.__doc__ = f"Wrapping {op} (numeric.rs {op}_wrapping)."
     return kernel
+
+
+def _lsr1(x: torch.Tensor) -> torch.Tensor:
+    """u64 x >> 1 on int64 storage."""
+    return (x >> 1) & ((1 << 63) - 1)
+
+
+def _udiv64(l: torch.Tensor, r: torch.Tensor):
+    """(quotient, remainder) of u64 bits on int64 storage, exactly; r is
+    never 0.  A divisor of 2^63 or more (negative storage) goes at most
+    once; otherwise the halved dividend is below 2^63, so a signed
+    division is exact, and one correction step finishes it."""
+    big = r < 0
+    rr = torch.where(big, torch.ones_like(r), r)
+    q = torch.div(_lsr1(l), rr, rounding_mode="trunc") << 1
+    m = l - q * rr
+    fix = ~_ult(m, rr, dt.uint64)                # m >= rr (unsigned)
+    q, m = q + fix, m - torch.where(fix, rr, torch.zeros_like(rr))
+    qb = (~_ult(l, r, dt.uint64)).to(l.dtype)   # l >= r: once, else 0
+    return (torch.where(big, qb, q),
+            torch.where(big, l - torch.where(qb.bool(), r, 0), m))
+
+
+def _int_divide(l: torch.Tensor, r: torch.Tensor, d: dt.DataType,
+                want_rem: bool):
+    """Truncated quotient or remainder of integer storage of type d, and
+    the slots that raise (zero divisor; MIN / -1 and MIN % -1).  The
+    divisor is 1 at those slots; the quotient there is the wrapped
+    result (MIN / -1 = MIN), the remainder 0 (numeric.py:147-188)."""
+    zero = r == 0
+    over = torch.zeros_like(zero)
+    if d.is_signed_integer:
+        lo = torch.iinfo(l.dtype).min
+        over = (l == lo) & (r == -1)
+    bad = zero | over
+    safe = torch.where(bad, torch.ones_like(r), r)
+    if d.name == "uint64":
+        q, m = _udiv64(l, safe)
+    elif d.is_unsigned_integer:                 # uint8/16/32 as int64
+        wl, wr = dt.widen(l, d), dt.widen(safe, d)
+        q = torch.div(wl, wr, rounding_mode="trunc").to(l.dtype)
+        m = torch.fmod(wl, wr).to(l.dtype)
+    else:
+        q = torch.div(l, safe, rounding_mode="trunc")
+        m = torch.fmod(l, safe)
+    if want_rem:
+        return torch.where(bad, torch.zeros_like(m), m), bad
+    return torch.where(zero, torch.zeros_like(q), q), bad
+
+
+# (storage, quiet bit, the negative default NaN) per float type
+_NAN_BITS = {torch.float16: (torch.int16, 1 << 9, -(1 << 9)),
+             torch.float32: (torch.int32, 1 << 22, -(1 << 22)),
+             torch.float64: (torch.int64, 1 << 51, -(1 << 51))}
+
+
+def _x86_nans(out: torch.Tensor, l: torch.Tensor, r: torch.Tensor
+              ) -> torch.Tensor:
+    """`out` with its NaNs as x86 makes them, so as the reference's XLA
+    on the CPU gives them on any device: a NaN operand propagates,
+    quieted, the left one first; an invalid operation (0 / 0, inf % x,
+    x % 0) gives the negative default NaN.  torch's float64 fmod on the
+    CPU and CUDA's NaNs carry other bits."""
+    storage, quiet, default = _NAN_BITS[out.dtype]
+    bits = torch.where(torch.isnan(l), l.view(storage) | quiet,
+                       torch.where(torch.isnan(r), r.view(storage) | quiet,
+                                   default))
+    return torch.where(torch.isnan(out), bits.view(out.dtype), out)
+
+
+def div(lhs: Datum, rhs: Datum) -> PrimitiveColumn:
+    """Checked division (numeric.rs div): integers truncate, a zero
+    divisor or MIN / -1 on a valid slot raises DivideByZero; floats are
+    IEEE (x / 0 is an infinity or NaN)."""
+    out_dt = _resolve("div", lhs, rhs)
+    if not out_dt.is_integer:
+        return binary(lhs, rhs, lambda l, r: _x86_nans(l / r, l, r), out_dt)
+    col, flag = binary_with_flag(
+        lhs, rhs, lambda l, r: _int_divide(l, r, out_dt, False), out_dt)
+    check_flag(flag, DivideByZero, "integer division by zero/overflow")
+    return col
+
+
+def rem(lhs: Datum, rhs: Datum) -> PrimitiveColumn:
+    """Checked remainder (numeric.rs rem): the dividend's sign; a zero
+    divisor or MIN % -1 on a valid slot raises DivideByZero; float rem
+    is the truncated fmod."""
+    out_dt = _resolve("rem", lhs, rhs)
+    if not out_dt.is_integer:
+        return binary(lhs, rhs, lambda l, r: _x86_nans(torch.fmod(l, r), l,
+                                                       r), out_dt)
+    col, flag = binary_with_flag(
+        lhs, rhs, lambda l, r: _int_divide(l, r, out_dt, True), out_dt)
+    check_flag(flag, DivideByZero, "integer remainder by zero/overflow")
+    return col
+
+
+def _negate_float(v: torch.Tensor) -> torch.Tensor:
+    """IEEE negation as a flip of the sign bit, NaNs included, on any
+    device (CUDA's `-x` need not flip a NaN's sign)."""
+    storage = _NAN_BITS[v.dtype][0]
+    return (v.view(storage) ^ torch.iinfo(storage).min).view(v.dtype)
+
+
+def neg(col) -> PrimitiveColumn:
+    """Checked negation (numeric.rs neg): signed MIN on a valid slot
+    raises ArithmeticOverflow; floats flip their sign bit; unsigned
+    types cannot negate."""
+    col = as_datum(col)
+    d = col.dtype
+    if d.is_temporal:
+        raise _temporal_later(f"neg of {d!r}")
+    if d.is_signed_integer:
+        lo = torch.iinfo(col.values.dtype).min
+        bad = (col.values == lo) & col.is_valid_mask()
+        check_flag(bad.any(), ArithmeticOverflow, "neg overflowed")
+        return unary(col, torch.neg)
+    if d.is_floating:
+        return unary(col, _negate_float)
+    raise ArrowTypeError(f"cannot negate {d!r}")
+
+
+def neg_wrapping(col) -> PrimitiveColumn:
+    """Wrapping negation (numeric.rs neg_wrapping): 0 - v on integer
+    storage, the IEEE negation of floats."""
+    col = as_datum(col)
+    if col.dtype.is_boolean:
+        raise TypeError(f"neg_wrapping of {col.dtype!r}")
+    return unary(col, lambda v: torch.zeros_like(v) - v
+                 if not v.is_floating_point() else _negate_float(v))
 
 
 add = _checked("add", torch.add, _add_overflows)

@@ -18,9 +18,9 @@ first (the reference's u8 class keys plus a value key at native width):
                with -0.0 folded into +0.0 (row_format.py:522-530,575-589)
   dictionary   the dense rank of the dictionary value, through a rank
                LUT on the device; null dictionary entries fold into the
-               validity; a StringColumn ranks its rows on the host
-               (strings.string_ranks), as the reference dictionary-encodes
-               it
+               validity; a StringColumn is dictionary-encoded first
+               (strings.dictionary_encode, row_format.py:494-496), so
+               its codes are its ranks
   day_time     (sort keys) bit 31 flipped first, so the signed millis
                half orders under the int64 key (row_format.py:393-396)
 
@@ -48,8 +48,8 @@ decoded from its keys: ops/sort.py gathers it and writes the canonical
 NaN, as the reference's decode does.
 
 REE, decimal and nested sort and group keys raise
-ArrowNotImplementedError: those layouts join with ROADMAP A7, the byte
-rows of `RowConverter` with ROADMAP A7 and A8.
+ArrowNotImplementedError: those layouts join with ROADMAP A7.3, the byte
+rows of `RowConverter` with ROADMAP A7.4 and A8.
 """
 
 from __future__ import annotations
@@ -116,8 +116,9 @@ class KeyRange:
 def dictionary_value_ranks(values: Column) -> Tuple[np.ndarray, np.ndarray]:
     """Dense ranks of a dictionary's values, on the host (row_format.py:92).
     Returns (ranks uint64, is_null bool) per dictionary slot; equal values
-    share a rank; strings rank by their UTF-8 bytes.  Computed once per
-    values column and kept on it."""
+    share a rank; strings rank by their UTF-8 bytes, through the native
+    interning and sort (strings.value_ranks).  Computed once per values
+    column and kept on it (`dictionary_encode` sets them)."""
     ranks = getattr(values, "_value_ranks", None)
     if ranks is None:
         ranks = values._value_ranks = _value_ranks(values)
@@ -126,27 +127,22 @@ def dictionary_value_ranks(values: Column) -> Tuple[np.ndarray, np.ndarray]:
 
 def _value_ranks(values: Column) -> Tuple[np.ndarray, np.ndarray]:
     if isinstance(values, StringColumn):
-        lst = values.to_pylist()
-        is_null = np.array([v is None for v in lst], dtype=bool)
-        keys = sorted({v.encode() for v in lst if v is not None})
-        rank_of = {k: i for i, k in enumerate(keys)}
-        ranks = np.array([0 if v is None else rank_of[v.encode()]
-                          for v in lst], dtype=np.uint64)
-        return ranks, is_null
+        from .strings import value_ranks
+        return value_ranks(values)
     if isinstance(values, PrimitiveColumn):
         vals = values.to_numpy()
         is_null = ~values.is_valid_mask().cpu().numpy()
         ranks = np.zeros(len(vals), np.uint64)
         if (~is_null).any():
             _, inv = np.unique(vals[~is_null], return_inverse=True)
-            ranks[~is_null] = inv.astype(np.uint64)
+            ranks[~is_null] = inv.reshape(-1).astype(np.uint64)
         return ranks, is_null
     raise ArrowNotImplementedError(f"dictionary of {type(values).__name__}")
 
 
 def _not_yet(what: str) -> ArrowNotImplementedError:
     return ArrowNotImplementedError(
-        f"{what} as a sort or group key joins with ROADMAP A7")
+        f"{what} as a sort or group key joins with ROADMAP A7.3")
 
 
 def key_kind(c: Column) -> str:
@@ -171,13 +167,14 @@ def key_parts(c: Column):
     capture a sort); ranks is None when the dictionary is value-sorted
     (codes are ranks), entry_valid None when it holds no null value.  A
     declared ordered flag is not trusted: ranks come from the values, as
-    pyarrow orders them (ROADMAP C, reference fault 1).  A StringColumn
-    gives its rows' dense ranks (on the host) as codes."""
-    from .strings import device_table, string_ranks
+    pyarrow orders them (ROADMAP C7.1); a dictionary from
+    `dictionary_encode` carries its ranks, so its codes are taken as
+    they are without a host pass.  A StringColumn is dictionary-encoded
+    (row_format.py:494-496)."""
+    from .strings import device_table, dictionary_encode
     key_kind(c)
     if isinstance(c, StringColumn):
-        ranks = string_ranks(c.to_pylist()).astype(np.int64)
-        return torch.from_numpy(ranks), None, None, c.validity
+        c = dictionary_encode(c)
     if isinstance(c, DictionaryColumn):
         ranks, dict_null = dictionary_value_ranks(c.values)
         if not dict_null.any() and \
@@ -233,7 +230,7 @@ def encode_value_key(col: Column
     sign-flipped, unsigned and bool zero-extended, an interval[day_time]
     flips both 32-bit halves, floats take f64 totalOrder bits; a
     dictionary maps through its value ranks, its null entries folding
-    into the validity; a StringColumn is ranked on the fly."""
+    into the validity; a StringColumn is dictionary-encoded first."""
     if isinstance(col, PrimitiveColumn):
         d, v = col.dtype, col.values
         if d.is_floating:
@@ -254,9 +251,8 @@ def encode_value_key(col: Column
             validity = ev if validity is None else validity & ev
         return key, validity
     if isinstance(col, StringColumn):
-        from .strings import string_ranks
-        ranks = string_ranks(col.to_pylist())
-        return torch.from_numpy(ranks.view(np.int64)), col.validity
+        from .strings import dictionary_encode
+        return encode_value_key(dictionary_encode(col))
     raise ArrowNotImplementedError(f"row key for {type(col).__name__}")
 
 
@@ -265,10 +261,8 @@ def _flip(v: torch.Tensor, bits: int) -> torch.Tensor:
     return ~v if bits >= 64 else ((1 << bits) - 1) - v
 
 
-def _dict_bits(c: Column, vals: torch.Tensor) -> int:
-    """Bits of a dictionary's ranks (< its size) or a StringColumn's."""
-    if isinstance(c, StringColumn):
-        return int(vals.max()).bit_length() if len(vals) else 0
+def _dict_bits(c: DictionaryColumn) -> int:
+    """Bits of a dictionary's ranks (< its size)."""
     return max(len(c.values) - 1, 0).bit_length()
 
 
@@ -279,6 +273,9 @@ def _encode_one(c: Column, rng: Optional[KeyRange],
     options; group and join keys pass None (ascending, nulls first, and
     day_time intervals in their int64 storage order)."""
     kind = key_kind(c)
+    if isinstance(c, StringColumn):
+        from .strings import dictionary_encode
+        c = dictionary_encode(c)
     descending = opt is not None and opt.descending
     nulls_first = opt is None or opt.nulls_first
     vals, ranks, entry_valid, validity = key_parts(c)
@@ -295,7 +292,7 @@ def _encode_one(c: Column, rng: Optional[KeyRange],
         if kind == "dict":
             codes = vals.to(torch.int64)
             vkey = codes if ranks is None else ranks[codes]
-            bits = _dict_bits(c, vals)
+            bits = _dict_bits(c)
             if entry_valid is not None:
                 ev = entry_valid[codes]
                 validity = ev if validity is None else validity & ev
@@ -321,17 +318,10 @@ def encode_key_groups(cols: Sequence[Column],
     """Each column's key group (encode_key_groups_traced,
     row_format.py:637-640); options[i] is column i's sort order,
     ranges[i] (integer and bool columns only) narrows its value key and
-    drops its null class when it holds no null.  Keys ranked on the host
-    (a StringColumn's) move to the device of the other keys."""
+    drops its null class when it holds no null."""
     ranges = ranges or [None] * len(cols)
     options = options or [None] * len(cols)
-    groups = [_encode_one(c, r, o) for c, r, o in zip(cols, ranges, options)]
-    devices = {k.values.device for g in groups for k in g}
-    if len(devices) > 1:
-        dev = next(d for d in devices if d.type != "cpu")
-        groups = [[SortKey(k.values.to(dev), k.bits) for k in g]
-                  for g in groups]
-    return groups
+    return [_encode_one(c, r, o) for c, r, o in zip(cols, ranges, options)]
 
 
 def encode_keys(cols: Sequence[Column],

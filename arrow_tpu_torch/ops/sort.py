@@ -133,7 +133,8 @@ def _decode(col: Column, opt: SortOptions, group: Sequence[rf.SortKey],
         codes, validity = rf.decode_sorted_group(
             kind, opt, has_null, values, bits, col.dtype, col.codes.dtype,
             inv)
-        return DictionaryColumn(codes, col.values, validity, _canonical=True)
+        return DictionaryColumn(codes, col.values, validity, _canonical=True,
+                                ordered=bool(col.dtype.ordered))
     vals, validity = rf.decode_sorted_group(
         kind, opt, has_null, values, bits, col.dtype, col.values.dtype)
     return PrimitiveColumn(vals, col.dtype, validity, _canonical=True)

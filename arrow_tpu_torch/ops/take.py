@@ -4,22 +4,23 @@ the primitive, dictionary and null arms of _take_impl, take.py:35-269).
 
   primitive   -> values gather + validity gather (take.rs:408,434)
   dictionary  -> codes gather, dictionary shared (take.rs take_dict)
-  string      -> offsets rebuilt and bytes gathered on the host, where
-                 the port keeps strings (the indices come to the host)
+  string      -> new offsets from a cumsum of the gathered lengths, a
+                 byte map from a scatter and a cumsum, and a byte gather,
+                 on the device; reading the total byte count is the one
+                 host sync (take.py:178-198)
   null        -> a null column of the indices' length
 
 Out-of-range indices clamp, as the reference's unchecked mode does;
 `check_bounds=True` verifies and raises instead (one host sync).  Null
 indices give null outputs; null slots stay canonical zeros.  Unsigned
 indices (uint32 on int32 storage) read as their logical values.  Other
-layouts join with ROADMAP A7.
+layouts join with ROADMAP A7.3.
 """
 
 from __future__ import annotations
 
 from typing import Union
 
-import numpy as np
 import torch
 
 from .. import dtypes as dt
@@ -45,7 +46,7 @@ def _indices(indices: Union[PrimitiveColumn, torch.Tensor]) -> PrimitiveColumn:
 
 def take(values: Column, indices, *, check_bounds: bool = False) -> Column:
     """values[indices] (take.rs:86); indices: an integer PrimitiveColumn
-    or tensor (on the values' device, or anywhere for a StringColumn)."""
+    or tensor on the values' device."""
     indices = _indices(indices)
     n = len(values)
     idx = dt.widen(indices.values, indices.dtype)
@@ -67,7 +68,7 @@ def take(values: Column, indices, *, check_bounds: bool = False) -> Column:
     if isinstance(values, NullColumn):
         return NullColumn(idx.shape[0], idx.device)
     raise ArrowNotImplementedError(
-        f"take of {type(values).__name__} joins with ROADMAP A7")
+        f"take of {type(values).__name__} joins with ROADMAP A7.3")
 
 
 def _gather_validity(values: Column, idx: torch.Tensor,
@@ -79,22 +80,28 @@ def _gather_validity(values: Column, idx: torch.Tensor,
 
 def _take_strings(values: StringColumn, idx: torch.Tensor,
                   indices: PrimitiveColumn) -> StringColumn:
-    """Variable-width gather on the host (_take_bytes, take.py:178-198)."""
-    host = idx.cpu()
-    h = host.numpy()
-    offs = values.offsets.numpy().astype(np.int64)
-    starts = offs[h]
-    lens = offs[h + 1] - starts
-    new_offs = np.zeros(len(h) + 1, np.int64)
-    np.cumsum(lens, out=new_offs[1:])
-    src = np.repeat(starts - new_offs[:-1], lens) + \
-        np.arange(int(new_offs[-1]), dtype=np.int64)
-    data = torch.from_numpy(values.data.numpy()[src])
-    validity = None if values.validity is None else values.validity[host]
-    if indices.validity is not None:
-        validity = vd.union(validity, indices.validity.cpu())
-    return StringColumn(torch.from_numpy(new_offs.astype(
-        values.offsets.numpy().dtype)), data, values.dtype, validity)
+    """Variable-width gather on the device (_take_bytes,
+    take.py:178-198).  Each output byte's source index grows by one
+    along a row and jumps to the row's start where the row begins (the
+    jumps of empty rows add up to the next row's), so a scatter of the
+    jumps and a cumsum give the byte map."""
+    offs = values.offsets
+    starts = offs.index_select(0, idx).to(torch.int64)
+    ends = offs.index_select(0, idx + 1).to(torch.int64)
+    new_offs = torch.zeros(idx.shape[0] + 1, dtype=torch.int64,
+                           device=idx.device)
+    torch.cumsum(ends - starts, 0, out=new_offs[1:])
+    total = int(new_offs[-1])              # the one host sync
+    # int32 maps while the bytes fit: half the traffic
+    ix = torch.int32 if max(total, values.data.shape[0]) < 2 ** 31 \
+        else torch.int64
+    prev_end = torch.cat([ends.new_ones(1), ends[:-1]])
+    step = torch.ones(total + 1, dtype=ix, device=idx.device)
+    step.index_add_(0, new_offs[:-1], (starts - prev_end).to(ix))
+    src = torch.cumsum(step[:total], 0, dtype=ix)
+    return StringColumn(new_offs.to(offs.dtype),
+                        values.data.index_select(0, src), values.dtype,
+                        _gather_validity(values, idx, indices))
 
 
 def take_table(table: Table, indices, *, check_bounds: bool = False) -> Table:

@@ -50,8 +50,7 @@ def query_table(table: Table, threshold: int) -> Tuple[float, int]:
     """The same query through the Table API: filter_table, then
     mul / add on columns, then sum_ / count; returns (sum, count) on
     the host.  Columns "x" (int64) and "y" (float64).  The predicate and
-    the int64 -> float64 widening of x are plain tensor expressions
-    here; the comparison and cast kernels join with ROADMAP A3."""
+    the int64 -> float64 widening of x are plain tensor expressions."""
     x = table.column("x")
     keep = PrimitiveColumn(x.values > threshold, dt.bool_, x.validity)
     kept = filter_table(table, keep)

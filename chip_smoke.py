@@ -98,10 +98,37 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      the runs of the sorted keys; then K1 at rank's run starts and at
      partition's boundaries (positions alone) bitwise against its plain
      version and timed against keep.nonzero()
+ 24. a streamed dictionary GROUP BY at config 4's size: 500M rows in four
+     125M-row chunks made on the card, each with a Dictionary<utf8> key
+     over config 2's 1,000 words and a Dictionary<utf8> s over 100 more,
+     both in a permutation of the chunk's own, and an Int32 v (10%
+     null), through GroupByAccumulator: count_all, sum and mean of v
+     (mean widens through cast), min and max of s (the string rank
+     proxy).  Each chunk takes the dictionary plan (K2 must launch); the
+     merge concatenates partials whose dictionaries differ and takes
+     the sort plan (K1 must launch).  Equal, bit for bit, to bincount /
+     index_add_ / scatter_reduce_ over each row's word id; host-clock
+     time (synced, generation included) and peak memory; then K2 at a
+     chunk's call and K1 at the merge's run starts against their plain
+     versions
+ 25. device strings: config 2's dictionary decoded to a utf8 column on
+     the card (bytes equal to the closed form) and encoded back (the
+     words in order, the codes); group_by on the utf8 key (K2 must
+     launch) against bincount over the codes; filter_table over i32, ts
+     and the utf8 column at config 2's WHERE (about 0.04% kept) and at
+     i32 > 0 (about 45%), one K1 launch each, offsets and bytes equal to
+     a host numpy gather; every new function of ops/numeric,
+     ops/aggregate, ops/bitwise and ops/select_misc on config 2's
+     columns, bitwise equal to the same call on CPU copies; config 5's
+     index-plan inner join (100M x 10M) whose build side carries the
+     word of (k // 2) % 1000, the strings equal to the closed form;
+     CUDA-event medians of each call, K1 at both filter sites and K2 at
+     the group-by against their plain versions
 
 `--profile` also traces the dictionary and config-4 group-bys, the
 config-5 joins on both plans, one streamed chunk, config 2 (eager and
-fused) and config 3 (lexsort, sort_table) with torch.profiler and
+fused), config 3 (lexsort, sort_table), phase 24's streamed run and
+phase 25's decode, encode, filters and join with torch.profiler and
 prints, for each, the device time per kernel, the host wall time and
 the card's idle share.
 
@@ -116,8 +143,9 @@ dictionary entries, the filter_table call at the same kept share for
 the sweep entries, steps 11, 12 and 13 for the group-by entries, and
 the join call that holds the site for the join entries (the inner
 join; the semi and anti joins; the merge-plan join; the colliding
-two-column join), the filter_table call of config 2's WHERE, and the
-rank and partition calls of step 23.
+two-column join), the filter_table call of config 2's WHERE, the
+rank and partition calls of step 23, the first streamed run of step 24,
+and the group_by and filter_table calls of step 25.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object of per-kernel results; the last line is the JSON result
@@ -311,7 +339,8 @@ def dictionary_table(n: int, device):
     v = _lsr(splitmix(n, 0, device), 32) % 1000
     vvalid = torch.rand(n, generator=gen, device=device) >= 0.1
     perm = np.random.default_rng(SEED).permutation(GROUPS)
-    words = StringColumn.from_pylist([f"key{i:04d}" for i in perm])
+    words = StringColumn.from_pylist([f"key{i:04d}" for i in perm],
+                                     device=device)
     return Table([DictionaryColumn(codes, words, kvalid),
                   PrimitiveColumn(v, dt.int64, vvalid)],
                  dt.Schema((dt.Field("k", dt.dictionary(dt.int32, dt.utf8)),
@@ -1090,6 +1119,11 @@ def run_config5_stream(dev, profile: bool) -> None:
 
 # ---- config 2: cast + compare -------------------------------------------
 
+def config2_words() -> list:
+    """Config 2's 1,000 dictionary words (bench.py:190), in byte order."""
+    return [f"word-{i:04d}" for i in range(1000)]
+
+
 def config2_inputs(n: int, dev):
     """bench.py:181-193's generator (rng(1)): host arrays and the columns
     on the card."""
@@ -1101,7 +1135,7 @@ def config2_inputs(n: int, dev):
     valid = rng.random(n) > 0.1
     ts = rng.integers(0, 2 ** 40, n)
     codes = rng.integers(0, 1000, n).astype(np.int32)
-    words = StringColumn.from_pylist([f"word-{i:04d}" for i in range(1000)])
+    words = StringColumn.from_pylist(config2_words(), device=dev)
     cols = (PrimitiveColumn(torch.from_numpy(i32).to(dev), dt.int32,
                             torch.from_numpy(valid).to(dev)),
             PrimitiveColumn(torch.from_numpy(ts).to(dev), dt.timestamp("us")),
@@ -1267,7 +1301,8 @@ def config3_table(n: int, dev):
     h = _mix2(torch.arange(n, dtype=torch.int64, device=dev))
     codes = _umod(h, 1000).to(torch.int32)
     valid = _umod(h, 10) != 0
-    words = StringColumn.from_pylist([f"w{i:04d}" for i in range(1000)])
+    words = StringColumn.from_pylist([f"w{i:04d}" for i in range(1000)],
+                                     device=dev)
     return Table([PrimitiveColumn(h, dt.int64, valid),
                   DictionaryColumn(codes, words)],
                  dt.Schema((dt.Field("k", dt.int64),
@@ -1392,11 +1427,485 @@ def run_config3(dev, profile: bool):
     return entries
 
 
+# ---- phase 24: a streamed dictionary GROUP BY ------------------------------
+
+P24_WORDS = 1_000                  # config 2's words (bench.py:190)
+P24_SWORDS = 100                   # the second dictionary's words
+P24_AGGS = (("v", "count_all"), ("v", "sum"), ("v", "mean"), ("s", "min"),
+            ("s", "max"))
+
+
+def p24_swords() -> list:
+    return [f"s-{i:02d}" for i in range(P24_SWORDS)]
+
+
+def p24_ids(n: int, offset: int, device):
+    """Row ids of a chunk from bench.py's splitmix hash: the word id w,
+    the second word id sw (within 13 of 7w, mod 100), v = (h >> 32) %
+    1000 and its validity (10% null)."""
+    h = splitmix(n, offset, device)
+    w = _umod(h, P24_WORDS)
+    sw = (w * 7 + _umod(_lsr(h, 20), 13)) % P24_SWORDS
+    v = (_lsr(h, 32) % 1000).to(torch.int32)
+    vvalid = _umod(_lsr(h, 12), 10) != 0
+    return w, sw, v, vvalid
+
+
+def p24_chunk(n: int, offset: int, chunk: int, device):
+    """One chunk with dictionaries of its own: k over the 1,000 words and
+    s over the 100 in permutations seeded by the chunk number, so every
+    chunk codes the same word differently."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import (DictionaryColumn,
+                                             PrimitiveColumn, StringColumn)
+    from arrow_tpu_torch.core.table import Table
+    w, sw, v, vvalid = p24_ids(n, offset, device)
+    cols = []
+    for ids, vocab, seed in ((w, config2_words(), chunk),
+                             (sw, p24_swords(), 1000 + chunk)):
+        perm = np.random.default_rng(seed).permutation(len(vocab))
+        inv = torch.from_numpy(np.argsort(perm).astype(np.int32)).to(device)
+        values = StringColumn.from_pylist([vocab[i] for i in perm],
+                                          device=device)
+        cols.append(DictionaryColumn(inv[ids], values))
+        del ids
+    d = dt.dictionary(dt.int32, dt.utf8)
+    return Table(cols + [PrimitiveColumn(v, dt.int32, vvalid)],
+                 dt.Schema((dt.Field("k", d, nullable=False),
+                            dt.Field("s", d, nullable=False),
+                            dt.Field("v", dt.int32))))
+
+
+def p24_independent(dev) -> dict:
+    """count_all, sum, mean and the min and max second word per word id,
+    chunk by chunk from the generator: bincount, index_add_ and
+    scatter_reduce_, no code of the port."""
+    g = P24_WORDS
+    cnt = torch.zeros(g, dtype=torch.int64, device=dev)
+    vsum, vcnt = torch.zeros_like(cnt), torch.zeros_like(cnt)
+    smin = torch.full((g,), P24_SWORDS, dtype=torch.int64, device=dev)
+    smax = torch.full((g,), -1, dtype=torch.int64, device=dev)
+    for off in range(0, CONFIG4_ROWS, CONFIG4_CHUNK):
+        w, sw, v, vvalid = p24_ids(min(CONFIG4_CHUNK, CONFIG4_ROWS - off),
+                                   off, dev)
+        cnt += torch.bincount(w, minlength=g)
+        vsum.index_add_(0, w, torch.where(vvalid, v.to(torch.int64), 0))
+        vcnt.index_add_(0, w, vvalid.to(torch.int64))
+        smin.scatter_reduce_(0, w, sw, "amin")
+        smax.scatter_reduce_(0, w, sw, "amax")
+        del w, sw, v, vvalid
+    return {"cnt": cnt, "sum": vsum.to(torch.int32),
+            "mean": vsum.to(torch.float64) / vcnt.clamp(min=1)
+            .to(torch.float64),
+            "smin": smin.tolist(), "smax": smax.tolist()}
+
+
+def p24_check(out, want, what: str) -> None:
+    words, swords = config2_words(), p24_swords()
+    if out.num_rows != P24_WORDS or out.column("k").to_pylist() != words:
+        raise AssertionError(f"{what}: keys differ from the words in order")
+    for name, ref in (("v_count_all", want["cnt"]), ("v_sum", want["sum"]),
+                      ("v_mean", want["mean"])):
+        col = out.column(name)
+        if col.validity is not None and not bool(col.validity.all()):
+            raise AssertionError(f"{what}: {name} has nulls")
+        if col.values.dtype != ref.dtype or \
+                not torch.equal(_bits(col.values), _bits(ref)):
+            raise AssertionError(f"{what}: {name} differs from the "
+                                 f"independent computation")
+    for name, ids in (("s_min", want["smin"]), ("s_max", want["smax"])):
+        if out.column(name).to_pylist() != [swords[i] for i in ids]:
+            raise AssertionError(f"{what}: {name} differs from the "
+                                 f"independent computation")
+    print(f"{what}: {out.num_rows:,} groups; count_all, sum, mean and the "
+          f"min/max strings equal to the independent computation, bit for "
+          f"bit", flush=True)
+
+
+def _k2_site(call_site: str, call) -> Site:
+    """K2 at the inputs a watched grouped_aggregate call was given."""
+    from arrow_tpu_torch.kernels import groupagg as kg
+    (codes, g), kwargs = call[0][:2], call[1]
+    sums, mms = kwargs.get("sum_cols", ()), kwargs.get("mm_cols", ())
+    extra = {"base": kwargs.get("base", 0),
+             "codes_valid": kwargs.get("codes_valid"),
+             "codes_dtype": kwargs.get("codes_dtype")}
+    moved = nbytes(codes, extra["codes_valid"],
+                   *[t for c in sums for t in (c.values, c.valid)],
+                   *[t for c in mms for t in (c.values, c.valid)]) \
+        + 8 * g * (2 * len(sums) + 2 * len(mms))
+    return Site("grouped_aggregate", call_site,
+                lambda: kg.grouped_aggregate(codes, g, sums, mms,
+                                             decode=False, **extra),
+                lambda: kg.grouped_aggregate_plain(codes, g, sums, mms,
+                                                   **extra),
+                None, moved)
+
+
+def run_phase24(dev, profile: bool) -> list:
+    """Phase 24: config 4's 500M rows in four 125M-row chunks, each with
+    Dictionary<utf8> columns of its own, through GroupByAccumulator."""
+    from arrow_tpu_torch.ops.groupby import AggSpec, GroupByAccumulator
+    aggs = [AggSpec(*a) for a in P24_AGGS]
+    what = f"phase 24, {CONFIG4_ROWS:,} rows in {CONFIG4_CHUNK:,}-row " \
+        f"chunks with dictionaries of their own"
+
+    def stream():
+        acc = GroupByAccumulator(["k"], aggs)
+        for i, off in enumerate(range(0, CONFIG4_ROWS, CONFIG4_CHUNK)):
+            acc.update(p24_chunk(min(CONFIG4_CHUNK, CONFIG4_ROWS - off), off,
+                                 i, dev))
+        return acc.finalize()
+
+    want = p24_independent(dev)
+    _reset_counts()
+    with watch("grouped_aggregate", "groupby") as k2_calls, \
+            watch("compact", "groupby") as k1_calls:
+        out = stream()
+    launches = _read_counts(what, "grouped_aggregate")
+    if launches["compact"] <= 0:
+        raise AssertionError(f"{what}: the merge never launched compact")
+    k2_call, k1_call = k2_calls[0], k1_calls[-1]
+    del k2_calls, k1_calls
+    p24_check(out, want, what)
+    del out
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = stream()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = peak_gib()
+    p24_check(out, want, f"{what} (second run)")
+    del out, want
+    print(f"{what}: {secs * 1e3:.1f} ms (host clock, synced, chunk "
+          f"generation included), {CONFIG4_ROWS / secs:.4g} rows/s; peak "
+          f"device memory {peak:.2f} GiB", flush=True)
+    if profile:
+        profile_call("phase 24 streamed group_by", stream)
+    entries = []
+    site = _k2_site(f"phase 24 dictionary plan, {CONFIG4_CHUNK:,}-row chunk "
+                    f"x {k2_call[0][1]:,} codes", k2_call)
+    err = check_site(site, same_aggregates, f"K2 at {site.call_site}")
+    entries.append(_entry(site, launches["grouped_aggregate"], err))
+    del site, k2_call
+    (keep, arrays), kwargs = k1_call[0][:2], k1_call[1]
+    site = _compact_site(f"phase 24 merge, sort-plan run starts, "
+                         f"{keep.shape[0]:,} partial rows", keep,
+                         tuple(arrays), kwargs.get("out_cap"),
+                         lambda: (arrays[0][keep], keep.nonzero()),
+                         kwargs.get("positions"))
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    entries.append(_entry(site, launches["compact"], err))
+    return entries
+
+
+# ---- phase 25: device strings at config 2's and config 5's sizes ----------
+
+def _word_bytes(dev) -> torch.Tensor:
+    """(1,000, 9) uint8: the bytes of config 2's words."""
+    raw = "".join(config2_words()).encode()
+    return torch.frombuffer(bytearray(raw), dtype=torch.uint8) \
+        .reshape(P24_WORDS, 9).to(dev)
+
+
+def _same_strings(col, ids: torch.Tensor, what: str) -> None:
+    """A column of 9-byte words equal to the words at `ids`, bitwise."""
+    dev = ids.device
+    offs = torch.arange(ids.shape[0] + 1, dtype=torch.int64, device=dev) * 9
+    data = _word_bytes(dev)[ids.to(torch.int64)].reshape(-1)
+    if not torch.equal(col.offsets.to(torch.int64), offs) or \
+            not torch.equal(col.data, data):
+        raise AssertionError(f"{what}: offsets or bytes differ from the "
+                             f"closed form")
+
+
+def _host_gather(offs: np.ndarray, data: np.ndarray, keep: np.ndarray):
+    """The kept rows' offsets and bytes, by numpy."""
+    idx = np.nonzero(keep)[0]
+    lens = offs[idx + 1] - offs[idx]
+    new = np.zeros(len(idx) + 1, np.int64)
+    np.cumsum(lens, out=new[1:])
+    src = np.repeat(offs[idx] - new[:-1], lens) + np.arange(new[-1])
+    return new, data[src]
+
+
+def _cpu(x):
+    """A column of the port with its tensors, a dictionary's values
+    included, on the CPU."""
+    from torch.utils import _pytree as pytree
+    from arrow_tpu_torch.core.column import DictionaryColumn
+    if isinstance(x, DictionaryColumn):
+        return DictionaryColumn(x.codes.cpu(), _cpu(x.values),
+                                None if x.validity is None
+                                else x.validity.cpu(), _canonical=True,
+                                ordered=bool(x.dtype.ordered))
+    return pytree.tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor)
+                           else t, x)
+
+
+def _outcome(fn):
+    """fn's result, or the name of the error it raised."""
+    try:
+        return fn()
+    except Exception as e:                 # compared by name
+        return type(e).__name__
+
+
+def _same_outcome(got, want, what: str) -> None:
+    """A card result equal to the CPU route's, bit for bit."""
+    from torch.utils import _pytree as pytree
+    gl, gs = pytree.tree_flatten(got)
+    wl, ws = pytree.tree_flatten(want)
+    if str(gs) != str(ws) or len(gl) != len(wl):
+        raise AssertionError(f"{what}: {gs} against {ws}")
+    for a, b in zip(gl, wl):
+        if isinstance(a, torch.Tensor):
+            if a.dtype != b.dtype or a.shape != b.shape or \
+                    not torch.equal(_bits(a.cpu()), _bits(b)):
+                raise AssertionError(f"{what}: differs from the CPU route")
+        elif a != b:
+            raise AssertionError(f"{what}: {a!r} against {b!r}")
+
+
+def p25_compute_calls(i32, ts, dcol, dv, m2, m3):
+    """Each new function of numeric, aggregate, bitwise and select_misc
+    once, on config 2's columns: (name, call)."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.ops import aggregate as pa, bitwise as pb
+    from arrow_tpu_torch.ops import numeric as pn, select_misc as psel
+    from arrow_tpu_torch.ops.cast import cast
+    i64 = cast(i32, dt.int64)
+    f64, fdv = cast(i32, dt.float64), cast(dv, dt.float64)
+    return [
+        ("div", lambda: pn.div(i32, dv)),
+        ("rem", lambda: pn.rem(i32, dv)),
+        ("neg", lambda: pn.neg(i64)),
+        ("neg_wrapping", lambda: pn.neg_wrapping(i32)),
+        ("div (float64)", lambda: pn.div(f64, fdv)),
+        ("rem (float64)", lambda: pn.rem(f64, fdv)),
+        ("neg (float64)", lambda: pn.neg(f64)),
+        ("sum_checked", lambda: pa.sum_checked(i64)),
+        ("min_", lambda: pa.min_(i32)),
+        ("max_", lambda: pa.max_(i32)),
+        ("min_max", lambda: pa.min_max(ts)),
+        ("min_ (dictionary)", lambda: pa.min_(dcol)),
+        ("max_ (dictionary)", lambda: pa.max_(dcol)),
+        ("count_nulls", lambda: pa.count_nulls(i32)),
+        ("bool_and", lambda: pa.bool_and(m3)),
+        ("bool_or", lambda: pa.bool_or(m2)),
+        ("bit_and", lambda: pa.bit_and(i32)),
+        ("bit_or", lambda: pa.bit_or(i32)),
+        ("bit_xor", lambda: pa.bit_xor(i32)),
+        ("bitwise_and", lambda: pb.bitwise_and(i32, dv)),
+        ("bitwise_or", lambda: pb.bitwise_or(i32, dv)),
+        ("bitwise_xor", lambda: pb.bitwise_xor(i32, dv)),
+        ("bitwise_not", lambda: pb.bitwise_not(i32)),
+        ("bitwise_shift_left", lambda: pb.bitwise_shift_left(i32, dv)),
+        ("bitwise_shift_right", lambda: pb.bitwise_shift_right(i32, dv)),
+        ("zip_", lambda: psel.zip_(m2, i32, dv)),
+        ("zip_ (dictionary)", lambda: psel.zip_(m2, dcol, dcol)),
+        ("nullif", lambda: psel.nullif(i32, m2)),
+        ("shift", lambda: psel.shift(i32, 3)),
+        ("shift (dictionary)", lambda: psel.shift(dcol, -5)),
+    ]
+
+
+def run_phase25(dev, profile: bool) -> list:
+    """Phase 25: config 2's dictionary decoded to device strings, encoded
+    back, grouped by and filtered; config 5's index-plan join carrying a
+    string column; the new elementwise functions against the CPU
+    route."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import (DictionaryColumn,
+                                             PrimitiveColumn)
+    from arrow_tpu_torch.core.datum import Scalar
+    from arrow_tpu_torch.core.table import Table
+    from arrow_tpu_torch.ops.boolean import and_kleene, or_kleene
+    from arrow_tpu_torch.ops.cast import cast
+    from arrow_tpu_torch.ops.cmp import gt, gt_eq
+    from arrow_tpu_torch.ops.filter import filter_table
+    from arrow_tpu_torch.ops.groupby import AggSpec, group_by
+    from arrow_tpu_torch.ops.join import join
+    from arrow_tpu_torch.ops.strings import (dictionary_decode,
+                                             dictionary_encode)
+    n = CONFIG2_ROWS
+    host, (i32, ts, dcol) = config2_inputs(n, dev)
+    i32_np, valid_np, ts_np, codes_np = host
+    codes = torch.from_numpy(codes_np).to(dev)
+    what = f"phase 25, {n:,} rows"
+    times = {}
+
+    s = dictionary_decode(dcol)
+    torch.cuda.synchronize()
+    _same_strings(s, codes, f"{what}: dictionary_decode")
+    times["dictionary_decode"] = time_ms(lambda: dictionary_decode(dcol))
+    enc = dictionary_encode(s)
+    if enc.values.to_pylist() != config2_words() or \
+            not torch.equal(enc.codes, codes) or enc.validity is not None:
+        raise AssertionError(f"{what}: dictionary_encode differs from the "
+                             f"words and their indices")
+    times["dictionary_encode"] = time_ms(lambda: dictionary_encode(s), 3)
+    del enc
+    if profile:
+        profile_call(f"{what} dictionary_decode",
+                     lambda: dictionary_decode(dcol))
+        profile_call(f"{what} dictionary_encode",
+                     lambda: dictionary_encode(s))
+    print(f"{what}: dictionary_decode to {s.data.numel():,} bytes on the "
+          f"card and dictionary_encode back equal the words and codes; "
+          f"decode {times['dictionary_decode']:.4f} ms, encode (host "
+          f"interning) {times['dictionary_encode']:.4f} ms", flush=True)
+
+    # group-by on the Utf8 key
+    table = Table([s, i32], dt.Schema((dt.Field("s", dt.utf8, False),
+                                       dt.Field("i32", dt.int32))))
+    aggs = [AggSpec("i32", "count_all"), AggSpec("i32", "count"),
+            AggSpec("i32", "sum")]
+    _reset_counts()
+    with watch("grouped_aggregate", "groupby") as k2_calls:
+        out = group_by(table, ["s"], aggs)
+    gb_launches = _read_counts(f"{what} group_by on the utf8 key",
+                               "grouped_aggregate")
+    c64, valid = codes.to(torch.int64), i32.validity
+    v64 = torch.where(valid, i32.values.to(torch.int64), 0)
+
+    def per_word(x):
+        return torch.zeros(1000, dtype=torch.int64,
+                           device=dev).index_add_(0, c64, x)
+    want = (torch.bincount(c64, minlength=1000),
+            per_word(valid.to(torch.int64)), per_word(v64).to(torch.int32))
+    if out.column("s").to_pylist() != config2_words() or any(
+            not torch.equal(out.column(c).values, w)
+            for c, w in zip(("i32_count_all", "i32_count", "i32_sum"), want)):
+        raise AssertionError(f"{what}: group_by on the utf8 key differs from "
+                             f"bincount / index_add_ over the codes")
+    del out, want, v64, c64
+    times["group_by (utf8 key)"] = time_ms(lambda: group_by(table, ["s"],
+                                                            aggs))
+    print(f"{what}: group_by on the utf8 key equal to bincount / index_add_ "
+          f"over the codes; {times['group_by (utf8 key)']:.4f} ms",
+          flush=True)
+    entries = []
+    site = _k2_site(f"phase 25 utf8-key group_by (dictionary plan), "
+                    f"{n:,} rows x {k2_calls[0][0][1]:,} codes", k2_calls[0])
+    del k2_calls
+    err = check_site(site, same_aggregates, f"K2 at {site.call_site}")
+    entries.append(_entry(site, gb_launches["grouped_aggregate"], err))
+    del site, table
+
+    # filter_table at config 2's WHERE and at i32 > 0
+    m1, m2, m3 = config2_run(i32, ts, dcol)
+    m4 = gt_eq(cast(i32, dt.int64), Scalar(0, dt.int64))
+    preds = {"WHERE": and_kleene(and_kleene(or_kleene(m1, m4), m2), m3),
+             "i32 > 0": gt(i32, Scalar(0, dt.int32))}
+    keeps = {"WHERE": valid_np & (i32_np >= 0) & (codes_np == 42),
+             "i32 > 0": valid_np & (i32_np > 0)}
+    ftable = Table([i32, ts, s], dt.Schema((
+        dt.Field("i32", dt.int32), dt.Field("ts", dt.timestamp("us")),
+        dt.Field("s", dt.utf8, False))))
+    s_offs, s_data = s.offsets.cpu().numpy().astype(np.int64), \
+        s.data.cpu().numpy()
+    for name, pred in preds.items():
+        _reset_counts()
+        with watch("compact", "filter") as calls:
+            out = filter_table(ftable, pred)
+        launches = _read_counts(f"{what} filter_table {name}", "compact")
+        if launches["compact"] != 1:
+            raise AssertionError(f"{what} filter_table {name}: "
+                                 f"{launches['compact']} K1 launches, not 1")
+        keep_np = keeps[name]
+        offs_np, data_np = _host_gather(s_offs, s_data, keep_np)
+        got = out.column("s")
+        if not np.array_equal(got.offsets.cpu().numpy(), offs_np) or \
+                not np.array_equal(got.data.cpu().numpy(), data_np) or \
+                not np.array_equal(out.column("i32").values.cpu().numpy(),
+                                   i32_np[keep_np]) or \
+                not np.array_equal(out.column("ts").values.cpu().numpy(),
+                                   ts_np[keep_np]):
+            raise AssertionError(f"{what} filter_table {name}: differs from "
+                                 f"the host numpy gather")
+        del out, got
+        times[f"filter_table {name}"] = time_ms(
+            lambda: filter_table(ftable, pred))
+        if profile:
+            profile_call(f"{what} filter_table {name}",
+                         lambda: filter_table(ftable, pred))
+        print(f"{what}: filter_table {name} keeps {int(keep_np.sum()):,} rows"
+              f" (one K1 launch), offsets and bytes equal to the host numpy "
+              f"gather; {times[f'filter_table {name}']:.4f} ms", flush=True)
+        (keep, arrays), kwargs = calls[0][0][:2], calls[0][1]
+        del calls
+        site = _compact_site(
+            f"phase 25 filter_table {name} with a utf8 column, {n:,} rows, "
+            f"{keep_np.mean():.2%} kept", keep, tuple(arrays),
+            kwargs.get("out_cap"),
+            lambda keep=keep, arrays=arrays: (
+                tuple(a[keep] for a in arrays), keep.nonzero()),
+            kwargs.get("positions"))
+        err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+        entries.append(_entry(site, launches["compact"], err))
+        del site, keep, arrays
+    del ftable
+
+    # the new compute functions against the CPU route
+    dv_np = ((i32_np >> 3) % 1000).astype(np.int32)
+    dv_np[dv_np == 0] = 1
+    dv = PrimitiveColumn(torch.from_numpy(dv_np).to(dev), dt.int32)
+    args = (i32, ts, dcol, dv, m2, m3)
+    cpu_calls = dict(p25_compute_calls(*[_cpu(a) for a in args]))
+    for name, call in p25_compute_calls(*args):
+        got = _outcome(call)
+        torch.cuda.synchronize()
+        _same_outcome(got, _outcome(cpu_calls[name]),
+                      f"{what}: {name} on the card")
+        times[name] = None if isinstance(got, str) else time_ms(call)
+        del got
+    print(f"{what}: {len(cpu_calls)} calls of div, rem, neg, the "
+          f"aggregates, the bitwise ops, zip_, nullif and shift equal to "
+          f"the CPU route", flush=True)
+    del cpu_calls, args, m1, m2, m3, m4, preds
+
+    # config 5's index-plan join with a utf8 column on the build side
+    k = config5_keys(CONFIG5_PROBE, 0, 2 * CONFIG5_BUILD, dev)
+    left = key_table(k=k)
+    r = torch.arange(CONFIG5_BUILD, device=dev)
+    words = dcol.values
+    right = Table([PrimitiveColumn(r * 2, dt.int64), dictionary_decode(
+        DictionaryColumn((r % 1000).to(torch.int32), words))],
+        dt.Schema((dt.Field("k", dt.int64, False),
+                   dt.Field("w", dt.utf8, False))))
+    del r
+    torch.cuda.reset_peak_memory_stats()
+    out = join(left, right, ["k"])
+    torch.cuda.synchronize()
+    peak = peak_gib()
+    rows = ((k & 1) == 0).nonzero().squeeze(1)
+    if not torch.equal(out.column("k").values, k[rows]):
+        raise AssertionError(f"{what}: the join's rows differ from the "
+                             f"closed form")
+    _same_strings(out.column("w"), (k[rows] >> 1) % 1000,
+                  f"{what}: the join's utf8 column")
+    pairs = out.num_rows
+    del out, rows
+    times["join (utf8 payload)"] = time_ms(lambda: join(left, right, ["k"]))
+    if profile:
+        profile_call("config 5 inner join with a utf8 build column",
+                     lambda: join(left, right, ["k"]))
+    print(f"config 5 {CONFIG5_PROBE:,} x {CONFIG5_BUILD:,} inner join with a "
+          f"utf8 build column: {pairs:,} rows, the strings equal to the "
+          f"closed form; {times['join (utf8 payload)']:.4f} ms (CUDA events,"
+          f" median of 5), peak device memory {peak:.2f} GiB", flush=True)
+    print("phase 25 times (CUDA events, median of 5; ms): "
+          + json.dumps(times), flush=True)
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace the group-bys, the joins and "
-                         "configs 2 and 3 with torch.profiler")
+                    help="also trace the group-bys, the joins, configs 2 "
+                         "and 3 and phases 24-25 with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1481,6 +1990,8 @@ def main(argv=None) -> int:
     run_config5_stream(dev, args.profile)
     entries.append(run_config2(dev, args.profile))
     entries += run_config3(dev, args.profile)
+    entries += run_phase24(dev, args.profile)
+    entries += run_phase25(dev, args.profile)
 
     sources = {
         "compact": {"route": "cuda",

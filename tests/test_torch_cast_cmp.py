@@ -210,7 +210,7 @@ def test_dictionary_casts(name):
                          ids=repr)
 def test_null_column_casts(to):
     ref = at.NullColumn(5)
-    got = cast(NullColumn(5), port_dtype(to))
+    got = cast(NullColumn(5, "cpu"), port_dtype(to))
     want = rcast(ref, to)
     assert repr(got.dtype) == repr(want.dtype)
     assert got.to_pylist() == want.to_pylist() == [None] * 5
@@ -328,7 +328,7 @@ def test_dictionary_predicate(kind, op, lit, side):
 def test_string_column_predicate(op, side):
     vals = ["b", None, "a", "word-0042", "", "é", "word-00420"]
     ref = at.column(vals)
-    port = StringColumn.from_pylist(vals)
+    port = StringColumn.from_pylist(vals, device="cpu")
     args = ((port, "word-0042"), (ref, "word-0042")) if side == "left" \
         else (("word-0042", port), ("word-0042", ref))
     same_outcome(lambda: getattr(pcmp, op)(*args[0]),

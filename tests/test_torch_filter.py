@@ -197,11 +197,12 @@ def test_compact_rejects_outside_contract(bad):
 
 
 def test_filter_of_string_column_needs_take():
-    from arrow_tpu_torch import column
-    col = column(["a", "b"], device="cpu")
-    pred = column([True, False], device="cpu")
-    with pytest.raises(ArrowNotImplementedError, match="A7"):
-        tf.filter(col, pred)
+    """A string column is gathered by the positions K1 emits (the
+    reference takes by the predicate's indices)."""
+    col = at.column(["a", None, "", "bc"])
+    pred = at.column([True, True, False, True])
+    assert_columns_equal(tf.filter(port_column(col), port_column(pred)),
+                         ref_filter.filter(col, pred), masks=True)
 
 
 def test_plain_version_never_counts_a_launch(rng):

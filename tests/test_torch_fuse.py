@@ -104,7 +104,8 @@ def _card_inputs(dev, seed):
 
 
 def test_fuse_replays_new_inputs(cuda_device):
-    words = att.StringColumn.from_pylist([f"word-{i:04d}" for i in range(1000)])
+    words = att.StringColumn.from_pylist(
+        [f"word-{i:04d}" for i in range(1000)], device=cuda_device)
     fused = fuse(_pipeline)
     for seed in (0, 1, 2):
         i32, valid, ts, codes = _card_inputs(cuda_device, seed)

@@ -128,8 +128,9 @@ def test_concat_matches_reference(rng):
                         ref_concat.concat_tables([t, t.slice(5, 7)]))
     with pytest.raises(ArrowTypeError):
         concat([port_column(a), port_column(rand_column(rng, "int16", 3))])
-    with pytest.raises(ArrowNotImplementedError, match="A7"):
-        concat([pd, port_column(dict_column(rng, 4, ["p", "q"]))])
+    d2 = dict_column(rng, 4, ["p", "q"])
+    assert_columns_equal(concat([pd, port_column(d2)]),
+                         ref_concat.concat([d, d2]))
     with pytest.raises(ArrowInvalid):
         concat([])
 

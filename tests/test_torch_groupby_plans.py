@@ -16,7 +16,6 @@ import arrow_tpu as at
 import jax.numpy as jnp
 from arrow_tpu.ops.groupby import AggSpec as RefAggSpec
 from arrow_tpu.ops.groupby import group_by as ref_group_by
-from arrow_tpu_torch.errors import ArrowNotImplementedError
 from arrow_tpu_torch.kernels import compact as kc, groupagg as kg
 from arrow_tpu_torch.ops.groupby import AggSpec, group_by
 
@@ -170,22 +169,19 @@ def test_dictionary_with_null_or_repeated_values(rng, route, values):
 @pytest.mark.parametrize("case", ["string-key", "string-min",
                                   "dictionary-max"])
 def test_group_by_still_raises_naming_a7(case):
-    """String keys and min/max over strings or dictionaries wait for
-    ROADMAP A7 (_group_by_string_minmax, groupby.py:2131)."""
-    import arrow_tpu_torch as att
-    from arrow_tpu_torch.core.column import StringColumn
-    words = StringColumn.from_pylist(["x", "y", "x"])
+    """String keys and min/max over strings or dictionaries, once ROADMAP
+    A7 named, now match the reference (_group_by_string_minmax,
+    groupby.py:2131)."""
+    words = at.StringColumn.from_pylist(["x", "y", "x"])
     if case == "string-key":
-        t = att.Table.from_pydict({"k": words, "v": [1, 2, 3]}, device="cpu")
-        aggs = [AggSpec("v", "sum")]
+        t = at.Table.from_pydict({"k": words, "v": [1, 2, 3]})
+        aggs = [("v", "sum")]
     elif case == "string-min":
-        t = att.Table.from_pydict({"k": [1, 1, 2], "s": words}, device="cpu")
-        aggs = [AggSpec("s", "min")]
+        t = at.Table.from_pydict({"k": [1, 1, 2], "s": words})
+        aggs = [("s", "min")]
     else:
-        t = att.Table.from_numpy_columns(
-            {"k": {"values": np.array([1, 1, 2])},
-             "s": {"values": np.array([0, 1, 0], np.int32),
-                   "dictionary": ["p", "q"]}}, device="cpu")
-        aggs = [AggSpec("s", "max")]
-    with pytest.raises(ArrowNotImplementedError, match="A7"):
-        group_by(t, ["k"], aggs)
+        t = at.Table.from_pydict({"k": [1, 1, 2], "s": at.DictionaryColumn(
+            jnp.asarray(np.array([0, 1, 0], np.int32)),
+            at.StringColumn.from_pylist(["p", "q"]))})
+        aggs = [("s", "max")]
+    check(t, ["k"], aggs)

@@ -23,7 +23,7 @@ import torch
 import arrow_tpu as at
 import arrow_tpu_torch as att
 import jax.numpy as jnp
-from arrow_tpu_torch.errors import ArrowInvalid, ArrowNotImplementedError
+from arrow_tpu_torch.errors import ArrowInvalid
 from arrow_tpu_torch.kernels import compact as kc
 from arrow_tpu_torch.ops import join as pj
 
@@ -390,11 +390,14 @@ def test_join_right_on_and_suffix(route):
 
 
 def test_join_string_payload_raises_naming_a7():
-    left = att.Table.from_pydict({"k": [1, 2], "s": ["a", "b"]},
-                                 device="cpu")
-    right = att.Table.from_pydict({"k": [2, 3]}, device="cpu")
-    with pytest.raises(ArrowNotImplementedError, match="A7"):
-        pj.join(left, right, ["k"])
+    """String columns in join's output, once ROADMAP A7 named, now ride
+    the device take (ops/take.py) as the reference's take."""
+    left = at.Table.from_pydict({"k": [1, 2, 2], "s": ["a", None, "é"]})
+    right = at.Table.from_pydict({"k": [2, 3], "t": ["x", ""]})
+    for how in ("inner", "left", "semi", "anti"):
+        assert_tables_equal(
+            pj.join(port_table(left), port_table(right), ["k"], how=how),
+            rj.join(left, right, ["k"], how=how))
 
 
 @pytest.mark.parametrize("call", ["join_indices", "hash_joiner"])

@@ -194,7 +194,7 @@ def test_fold_matches_reference_bits(route, case):
                             [rt.column(c) for c in on])
     plt, prt = port_table(lt), port_table(rt)
     got = pj.combined_keys([plt.column(c) for c in on],
-                           [prt.column(c) for c in on], torch.device("cpu"))
+                           [prt.column(c) for c in on])
     for g, w in ((got[0], want[0]), (got[2], want[2])):
         np.testing.assert_array_equal(g.numpy().view(np.uint64),
                                       np.asarray(w))

@@ -448,7 +448,8 @@ def test_ordered_dictionary_follows_pyarrow():
                               at.StringColumn.from_pylist(values),
                               ordered=True)
     port = DictionaryColumn(torch.from_numpy(codes),
-                            StringColumn.from_pylist(values), ordered=True)
+                            StringColumn.from_pylist(values, device="cpu"),
+                            ordered=True)
     assert ps.sort(port).to_pylist() == ["a", "b", "b", "q", "q", "zz"]
     assert rs.sort(ref).to_pylist() == ["q", "q", "b", "b", "zz", "a"]
 
@@ -483,6 +484,6 @@ def test_take_table_and_strings(null_indices):
                                  [True, not null_indices, True, True, True])))
     pidx = port_column(idx)
     assert_tables_equal(take_table(port_table(t), pidx), rtake_table(t, idx))
-    assert take(StringColumn.from_pylist(["a", "bc", None]),
+    assert take(StringColumn.from_pylist(["a", "bc", None], device="cpu"),
                 torch.tensor([2, 1, 1, 0])).to_pylist() == \
         [None, "bc", "bc", "a"]

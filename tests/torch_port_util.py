@@ -51,27 +51,31 @@ def port_dtype(ref_dtype) -> att.dtypes.DataType:
     return getattr(att.dtypes, ref_dtype.name)
 
 
-def column_spec(col) -> dict:
+def column_spec(col, device="cpu") -> dict:
     """Walk a reference column into numpy: keyword arguments of
-    arrow_tpu_torch.core.column.from_numpy."""
+    arrow_tpu_torch.core.column.from_numpy (a dictionary's values as the
+    port's column on `device`, its type and ordered flag kept)."""
     validity = None if col.validity is None else np.asarray(col.validity)
     if isinstance(col, at.DictionaryColumn):
         return {"values": np.asarray(col.codes), "validity": validity,
-                "dictionary": col.values.to_pylist()}
+                "dictionary": port_column(col.values, device),
+                "ordered": bool(col.dtype.ordered)}
     return {"values": np.asarray(col.values), "validity": validity,
             "dtype": port_dtype(col.dtype)}
 
 
 def port_column(col, device="cpu"):
-    """The port's column holding the same buffers as a reference column
-    (a StringColumn stays on the host, as the port keeps strings)."""
+    """The port's column holding the same buffers as a reference column,
+    on `device`."""
     if isinstance(col, at.NullColumn):
         from arrow_tpu_torch.core.column import NullColumn
         return NullColumn(len(col), device)
     if isinstance(col, at.StringColumn):
-        return att.StringColumn.from_pylist(col.to_pylist_host(), port_dtype(
-            col.dtype))
-    return att.from_numpy(device=device, **column_spec(col))
+        return att.StringColumn.from_numpy(
+            np.asarray(col.offsets), np.asarray(col.data),
+            None if col.validity is None else np.asarray(col.validity),
+            port_dtype(col.dtype), device=device)
+    return att.from_numpy(device=device, **column_spec(col, device))
 
 
 def port_scalar(x, device="cpu"):
@@ -111,10 +115,14 @@ def port_field(f) -> att.dtypes.Field:
 
 def port_table(table, device="cpu") -> att.Table:
     """The port's Table holding the same buffers as a reference Table,
-    under the reference schema's fields (nullability included)."""
+    under the reference schema's fields (nullability included); each
+    column's type must be its field's, ordered flag included."""
     cols = [port_column(c, device) for c in table.columns]
-    return att.Table(cols, att.dtypes.Schema(
-        tuple(port_field(f) for f in table.schema.fields)))
+    fields = tuple(port_field(f) for f in table.schema.fields)
+    for c, f in zip(cols, fields):
+        assert (repr(c.dtype), c.dtype.ordered) == \
+            (repr(f.dtype), f.dtype.ordered), (f.name, c.dtype, f.dtype)
+    return att.Table(cols, att.dtypes.Schema(fields))
 
 
 def assert_same(got, want, what="") -> None:
@@ -130,10 +138,14 @@ def assert_same(got, want, what="") -> None:
 
 
 def assert_columns_equal(got, want, what="", masks=False) -> None:
-    """Same dtype and values; with `masks`, also the same presence of a
-    validity mask."""
+    """Same dtype (a dictionary's ordered flag included) and values; with
+    `masks`, also the same presence of a validity mask."""
     assert repr(got.dtype) == repr(want.dtype), (what, got.dtype, want.dtype)
-    if got.dtype.is_temporal:       # the reference lists datetimes
+    assert bool(got.dtype.ordered) == bool(want.dtype.ordered), \
+        (what, "ordered", got.dtype.ordered, want.dtype.ordered)
+    if got.dtype.is_temporal or (got.dtype.is_dictionary
+                                 and got.dtype.value_type.is_temporal):
+        # the reference lists datetimes
         assert_same(storage_list(got), storage_list(want), what)
     else:
         assert_same(got.to_pylist(), want.to_pylist(), what)
@@ -178,9 +190,13 @@ def _host(x) -> np.ndarray:
 
 
 def storage_list(col) -> list:
-    """A primitive column of either package as its raw storage bits,
-    None at nulls."""
-    b = bits(_host(col.values)).tolist()
+    """A primitive column (or a dictionary of primitive values) of either
+    package as its rows' raw storage bits, None at nulls."""
+    if hasattr(col, "codes"):
+        vals = storage_list(col.values)
+        b = [vals[c] for c in _host(col.codes).tolist()]
+    else:
+        b = bits(_host(col.values)).tolist()
     if col.validity is None:
         return b
     return [x if ok else None for x, ok in zip(b, _host(col.validity))]
