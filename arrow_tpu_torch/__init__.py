@@ -8,11 +8,12 @@ port is tested against; this package imports neither it nor JAX.
 """
 
 from . import dtypes
-from .core.column import (Column, DictionaryColumn, PrimitiveColumn,
-                          StringColumn, column, from_numpy)
+from .core.column import (Column, DictionaryColumn, ListColumn, NullColumn,
+                          PrimitiveColumn, StringColumn, StructColumn, column,
+                          from_numpy)
 from .core.datum import Scalar, scalar
 from .core.table import Table
 
 __all__ = ["dtypes", "Column", "PrimitiveColumn", "StringColumn",
-           "DictionaryColumn", "column", "from_numpy", "Scalar", "scalar",
-           "Table"]
+           "DictionaryColumn", "ListColumn", "StructColumn", "NullColumn",
+           "column", "from_numpy", "Scalar", "scalar", "Table"]

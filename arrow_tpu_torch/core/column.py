@@ -10,9 +10,10 @@ arrow_tpu/core/column.py).
   - Unsigned types use signed storage of the same width (dtypes.py);
     host conversion views the bits back as the logical numpy dtype.
 
-Class map (reference -> here): PrimitiveColumn, StringColumn,
-DictionaryColumn and NullColumn, each on the device the caller names.
-The other layouts join with ROADMAP A7.3.
+Class map (reference -> here): PrimitiveColumn (numeric, bool, temporal
+and decimal32/64), StringColumn, DictionaryColumn, ListColumn,
+StructColumn and NullColumn, each on the device the caller names; the
+other layouts are in core/nested.py.
 
 Every column class is a torch pytree node (`torch.utils._pytree`), as
 the reference's columns are jax pytrees: their tensors are the leaves,
@@ -34,7 +35,8 @@ from ..errors import ArrowInvalid, ArrowNotImplementedError, ArrowTypeError
 from . import validity as vd
 
 __all__ = ["Column", "PrimitiveColumn", "StringColumn", "DictionaryColumn",
-           "NullColumn", "column", "from_numpy"]
+           "ListColumn", "StructColumn", "NullColumn", "column",
+           "from_numpy"]
 
 
 class Column:
@@ -97,7 +99,7 @@ def _check_mask(mask: vd.Mask, n: int, device: torch.device) -> None:
 
 
 class PrimitiveColumn(Column):
-    """Fixed-width values: numeric and boolean.
+    """Fixed-width values: numeric, boolean, temporal, decimal32/64.
 
     values: 1-D tensor of dtype.to_torch(); validity: bool mask or None.
     """
@@ -137,10 +139,18 @@ class PrimitiveColumn(Column):
 
     def to_pylist(self) -> list:
         out = self.to_numpy().tolist()
+        if self.dtype.is_decimal:          # unscaled ints -> Decimal
+            out = [_decimal_value(v, self.dtype.scale) for v in out]
         mask = self._mask_host()
         if mask is not None:
             out = [v if ok else None for v, ok in zip(out, mask.tolist())]
         return out
+
+
+def _decimal_value(unscaled: int, scale: int):
+    """The Decimal of an unscaled integer, as pyarrow lists decimals."""
+    from decimal import Decimal
+    return Decimal(unscaled).scaleb(-scale)
 
 
 class StringColumn(Column):
@@ -279,6 +289,112 @@ class DictionaryColumn(Column):
                 for i, c in enumerate(codes)]
 
 
+def _offset_rows(offsets: torch.Tensor, child: list, mask) -> list:
+    """Row lists of a child's Python values cut at `offsets`."""
+    offs = offsets.cpu().numpy().tolist()
+    return [None if mask is not None and not mask[i]
+            else child[offs[i]:offs[i + 1]] for i in range(len(offs) - 1)]
+
+
+class ListColumn(Column):
+    """List<T> / LargeList<T> (list_array.rs:169): offsets (n+1,), int32
+    for list and int64 for large_list, and a child column, both on the
+    column's device."""
+
+    def __init__(self, offsets: torch.Tensor, child: Column,
+                 validity: vd.Mask = None, large: bool = False):
+        if offsets.dim() != 1 or offsets.dtype not in (torch.int32,
+                                                       torch.int64) \
+                or offsets.device != child.device:
+            raise ArrowInvalid(
+                f"list offsets must be 1-D int32/int64 on the child's "
+                f"device, got {offsets.dtype} on {offsets.device}")
+        _check_mask(validity, offsets.shape[0] - 1, offsets.device)
+        self.offsets = offsets
+        self.child = child
+        self.validity = validity
+        self.dtype = (dt.large_list if large else dt.list_)(child.dtype)
+
+    def __len__(self):
+        return int(self.offsets.shape[0]) - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.offsets.device
+
+    def _large(self) -> bool:
+        return self.dtype.name == "large_list"
+
+    def with_validity(self, validity: vd.Mask) -> "ListColumn":
+        return ListColumn(self.offsets, self.child, validity, self._large())
+
+    def slice(self, offset, length):
+        """Rows [offset, offset + length): rebased offsets and the child
+        rows they cover (one host read of the two bounds)."""
+        offs = self.offsets[offset:offset + length + 1]
+        start, end = offs[[0, -1]].tolist()
+        v = None if self.validity is None \
+            else self.validity[offset:offset + length]
+        return ListColumn(offs - start, self.child.slice(start, end - start),
+                          v, self._large())
+
+    def to_pylist(self) -> list:
+        return _offset_rows(self.offsets, self.child.to_pylist(),
+                            self._mask_host())
+
+
+class StructColumn(Column):
+    """Struct (struct_array.rs:77): named children of equal length; the
+    struct's own validity beside theirs.  A struct of no children has
+    no rows."""
+
+    def __init__(self, children, fields, validity: vd.Mask = None):
+        children, fields = tuple(children), tuple(fields)
+        if len(children) != len(fields):
+            raise ArrowInvalid(f"{len(children)} children for "
+                               f"{len(fields)} fields")
+        if len({len(c) for c in children}) > 1 \
+                or len({c.device for c in children}) > 1:
+            raise ArrowInvalid("struct children differ in length or device")
+        if children:
+            _check_mask(validity, len(children[0]), children[0].device)
+        self.children = children
+        self.fields = fields
+        self.validity = validity
+        self.dtype = dt.struct(fields)
+
+    def __len__(self):
+        return len(self.children[0]) if self.children else 0
+
+    @property
+    def device(self) -> torch.device:
+        return self.children[0].device if self.children \
+            else torch.device("cpu")
+
+    def with_validity(self, validity: vd.Mask) -> "StructColumn":
+        return StructColumn(self.children, self.fields, validity)
+
+    def slice(self, offset, length):
+        v = None if self.validity is None \
+            else self.validity[offset:offset + length]
+        return StructColumn(tuple(c.slice(offset, length)
+                                  for c in self.children), self.fields, v)
+
+    def field(self, name: str) -> Column:
+        for f, c in zip(self.fields, self.children):
+            if f.name == name:
+                return c
+        raise KeyError(name)
+
+    def to_pylist(self) -> list:
+        kids = [c.to_pylist() for c in self.children]
+        mask = self._mask_host()
+        names = [f.name for f in self.fields]
+        return [None if mask is not None and not mask[i]
+                else {k: v[i] for k, v in zip(names, kids)}
+                for i in range(len(self))]
+
+
 class NullColumn(Column):
     """All-null column (arrow-array NullArray); its validity is all
     false, on `device`."""
@@ -327,6 +443,16 @@ pytree.register_pytree_node(
     lambda c: ([c.validity], None),
     lambda leaves, _: NullColumn(leaves[0].shape[0], leaves[0].device),
     serialized_type_name="arrow_tpu_torch.NullColumn")
+pytree.register_pytree_node(
+    ListColumn,
+    lambda c: ([c.offsets, c.child, c.validity], c._large()),
+    lambda leaves, large: ListColumn(leaves[0], leaves[1], leaves[2], large),
+    serialized_type_name="arrow_tpu_torch.ListColumn")
+pytree.register_pytree_node(
+    StructColumn,
+    lambda c: ([list(c.children), c.validity], c.fields),
+    lambda leaves, fields: StructColumn(leaves[0], fields, leaves[1]),
+    serialized_type_name="arrow_tpu_torch.StructColumn")
 
 
 # ---- constructors ----------------------------------------------------------
@@ -361,8 +487,9 @@ def from_numpy(values: np.ndarray, validity: Optional[np.ndarray] = None,
         codes = torch.from_numpy(_host_buffer(values, values.dtype)).to(dev)
         return DictionaryColumn(codes, dictionary, mask, ordered=ordered)
     ldt = dtype or dt.from_numpy_dtype(values.dtype)
-    if not ldt.is_primitive:
-        raise ArrowNotImplementedError(f"from_numpy for {ldt!r}")
+    if not ldt.is_single_tensor:
+        raise ArrowNotImplementedError(
+            f"from_numpy for {ldt!r}: build its layout from core/nested.py")
     host = _host_buffer(values, ldt.to_numpy())
     storage = torch.from_numpy(host.view(ldt.storage_numpy()))
     return PrimitiveColumn(storage.to(dev), ldt, mask)
@@ -373,7 +500,12 @@ def column(data, dtype: Optional[dt.DataType] = None, validity=None, *,
     """Build a Column from a Python list or a numpy array, on `device`.
 
     Python lists may contain None (nulls).  Strings become a
-    StringColumn on `device`; other layouts join with ROADMAP A7.3.
+    StringColumn, lists (of lists) a ListColumn and dicts a StructColumn
+    given its type; decimal128/256 take `decimal.Decimal`s (scaled
+    exactly) or ints (whole units), decimal32/64 their unscaled ints, as
+    in the reference; interval[month_day_nano] (months, days, nanos)
+    tuples or dicts; fixed-size binary, fixed-size list, map and
+    dictionary types go through their builders (core/builders.py).
     """
     if isinstance(data, Column):
         return data
@@ -388,8 +520,7 @@ def _column_from_pylist(values: list, dtype, validity, device) -> Column:
     non_null = [v for v in values if v is not None]
     if dtype is None:
         if not non_null:
-            raise ArrowNotImplementedError(
-                "all-null column needs an explicit dtype (ROADMAP A7)")
+            return NullColumn(len(values), resolve_device(device))
         v0 = non_null[0]
         if isinstance(v0, (bool, np.bool_)):
             dtype = dt.bool_
@@ -399,14 +530,72 @@ def _column_from_pylist(values: list, dtype, validity, device) -> Column:
             dtype = dt.float64
         elif isinstance(v0, str):
             dtype = dt.utf8
+        elif isinstance(v0, (list, tuple)):
+            inner = _column_from_pylist([x for row in non_null for x in row],
+                                        None, None, device)
+            dtype = dt.list_(inner.dtype)
         else:
             raise ArrowTypeError(f"cannot infer dtype from {type(v0)}")
-    if dtype.is_string:
+    if dtype.name == "utf8":
         return StringColumn.from_pylist(values, dtype, device=device)
-    if not dtype.is_primitive:
-        raise ArrowNotImplementedError(f"column of {dtype!r} (ROADMAP A7)")
+    if dtype.is_null:
+        return NullColumn(len(values), resolve_device(device))
+    if dtype.name in ("list", "large_list"):
+        return _list_from_pylist(values, dtype, device)
+    if dtype.name == "struct":
+        kids = [_column_from_pylist(
+            [None if row is None else
+             (row.get(f.name) if isinstance(row, dict) else row[i])
+             for row in values], f.dtype, None, device)
+            for i, f in enumerate(dtype.fields)]
+        mask = None if len(non_null) == len(values) else torch.tensor(
+            [v is not None for v in values], device=resolve_device(device))
+        return StructColumn(kids, dtype.fields, mask)
+    if dtype.name in ("decimal128", "decimal256"):
+        # a Decimal scales exactly; an int is whole units (column.py:522)
+        values = [None if v is None else _unscaled(v, dtype.scale)
+                  for v in values]
+    if dtype.name in ("decimal128", "decimal256", "fixed_size_binary",
+                      "fixed_size_list", "map", "dictionary") \
+            or dtype.unit == "month_day_nano":
+        from .builders import make_builder
+        b = make_builder(dtype, device)
+        for v in values:
+            b.append_null() if v is None else b.append(v)
+        return b.finish()
+    if not dtype.is_single_tensor:
+        raise ArrowNotImplementedError(
+            f"column of {dtype!r}: the large, view and binary string "
+            "columns join with ROADMAP A7.5")
     if validity is None and len(non_null) != len(values):
         validity = np.asarray([v is not None for v in values], dtype=bool)
     filled = np.asarray([0 if v is None else v for v in values],
                         dtype=dtype.to_numpy())
     return from_numpy(filled, validity, dtype, device)
+
+
+def _unscaled(v, scale: int) -> int:
+    """The unscaled int of a Decimal (exactly) or of whole units."""
+    import decimal
+    if not isinstance(v, decimal.Decimal):
+        return int(v) * 10 ** scale
+    scaled = v.scaleb(scale)
+    if scaled != scaled.to_integral_value():
+        raise ArrowInvalid(f"{v} does not fit scale {scale}")
+    return int(scaled)
+
+
+def _list_from_pylist(values: list, dtype: dt.DataType, device) -> ListColumn:
+    """ListArray::from_iter (list_array.rs:169): the rows' items as one
+    child, offsets from their lengths."""
+    large = dtype.name == "large_list"
+    lens = [0 if row is None else len(row) for row in values]
+    offsets = np.zeros(len(values) + 1, np.int64 if large else np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    child = _column_from_pylist([x for row in values if row is not None
+                                 for x in row], dtype.value_type, None,
+                                device)
+    dev = resolve_device(device)
+    mask = None if all(row is not None for row in values) else torch.tensor(
+        [row is not None for row in values], device=dev)
+    return ListColumn(torch.from_numpy(offsets).to(dev), child, mask, large)

@@ -2,8 +2,9 @@
 (counterpart of arrow_tpu/core/datum.py; arrow-array/src/scalar.rs:78).
 
 A scalar is a 0-d tensor of its type's storage (numeric, bool and
-temporal types alike; a utf8 or dictionary scalar keeps its Python
-value).  A scalar on
+temporal types alike; a utf8, dictionary or decimal scalar keeps its
+Python value, a decimal's a `decimal.Decimal` as the reference's
+reductions give it).  A scalar on
 the host meets a column on the card as a one-element fill on that
 device, expanded without copying: no copy from host memory, so a
 pipeline that builds scalars from Python values can be captured by
@@ -26,14 +27,19 @@ from .column import Column, PrimitiveColumn
 __all__ = ["Scalar", "Datum", "scalar", "as_datum", "broadcast_pair"]
 
 
+def _host_valued(dtype: dt.DataType) -> bool:
+    return dtype.is_string or dtype.is_dictionary or dtype.is_decimal \
+        or not dtype.is_single_tensor
+
+
 class Scalar:
     """A single (possibly null) value with a logical type.  `value` is a
     0-d tensor of the type's storage dtype (the Python value, or None
-    when null, for utf8 and dictionary types); the null flag is `valid`
-    / `as_py()`."""
+    when null, for utf8, dictionary, decimal and nested types); the null
+    flag is `valid` / `as_py()`."""
 
     def __init__(self, value, dtype: dt.DataType, valid: bool = True):
-        if dtype.is_string or dtype.is_dictionary:
+        if _host_valued(dtype):
             value = value if valid else None
         elif not isinstance(value, torch.Tensor):
             host = np.asarray(0 if not valid else value, dtype=dtype.to_numpy())
@@ -47,7 +53,7 @@ class Scalar:
         """Host value (None when null)."""
         if not self.valid:
             return None
-        if self.dtype.is_string or self.dtype.is_dictionary:
+        if _host_valued(self.dtype):
             return self.value
         return self.value.cpu().numpy().view(self.dtype.to_numpy()).item()
 

@@ -1,11 +1,17 @@
-"""Logical type system of the port (counterpart of arrow_tpu/dtypes.py).
+"""Logical type system of the port (counterpart of arrow_tpu/dtypes.py:
+46-372,452-561).
 
-The same logical-type vocabulary as the reference, restricted to what
-the port's slices carry: null, bool, the signed and unsigned integers,
-float16/32/64, the temporal types (date32/64, timestamp, time32/64,
-duration and the year_month and day_time intervals: integer storage
-plus unit and timezone metadata), utf8 and dictionary.  `to_torch`
-takes the place of `to_jax` (arrow_tpu/dtypes.py:142).
+The reference's logical-type vocabulary: null, bool, the signed and
+unsigned integers, float16/32/64, the temporal types (date32/64,
+timestamp, time32/64, duration and the three intervals: integer storage
+plus unit and timezone metadata), utf8 and dictionary, decimal32/64/128/
+256, fixed_size_binary, the list family, struct, map, union and
+run_end_encoded.  The large, view and binary string types are tags only
+(`typeparse` names them; their columns wait for ROADMAP A7.5).  The
+extension types wait for interop (A8).  `to_torch` takes the place of
+`to_jax` (arrow_tpu/dtypes.py:142): decimal32/64 are one int32/int64
+tensor; decimal128/256 and interval[month_day_nano] are several
+(core/nested.py) and have none.
 
 Unsigned storage: torch's uint16/uint32/uint64 reject `+`, `<`, `>>`
 and `max`, so Arrow's unsigned types live on signed storage of the same
@@ -16,6 +22,7 @@ sign-flip map; `to_numpy` names the logical numpy dtype for host views.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -25,9 +32,12 @@ import torch
 __all__ = [
     "DataType", "null", "bool_", "int8", "int16", "int32", "int64",
     "uint8", "uint16", "uint32", "uint64", "float16", "float32", "float64",
-    "utf8", "date32", "date64", "timestamp", "time32", "time64",
-    "duration", "interval", "dictionary", "Field", "Schema",
-    "from_numpy_dtype",
+    "utf8", "large_utf8", "utf8_view", "binary", "large_binary",
+    "binary_view", "fixed_size_binary", "date32", "date64", "timestamp",
+    "time32", "time64", "duration", "interval", "decimal32", "decimal64",
+    "decimal128", "decimal256", "dictionary", "list_", "large_list",
+    "list_view", "large_list_view", "fixed_size_list", "struct", "map_",
+    "union", "run_end_encoded", "Field", "Schema", "from_numpy_dtype",
     "torch_dtype_name", "widen", "storage_int", "integer_bounds",
 ]
 
@@ -37,12 +47,18 @@ class DataType:
     """A logical Arrow data type (cf. arrow-schema/src/datatype.rs:97)."""
 
     name: str
-    index_type: Optional["DataType"] = None   # dictionary key type
-    value_type: Optional["DataType"] = None   # dictionary value type
+    index_type: Optional["DataType"] = None   # dictionary key / run-end type
+    value_type: Optional["DataType"] = None   # dictionary / list value type
     # dictionary: values are sorted and code order IS value order
     ordered: Optional[bool] = None
     unit: Optional[str] = None                # temporal unit
     tz: Optional[str] = None                  # timestamp timezone
+    precision: Optional[int] = None           # decimal precision
+    scale: Optional[int] = None               # decimal scale
+    fields: Optional[Tuple["Field", ...]] = None   # struct / union children
+    list_size: Optional[int] = None           # fixed-size list / binary
+    mode: Optional[str] = None                # union: 'sparse' | 'dense'
+    type_ids: Optional[Tuple[int, ...]] = None     # union child type ids
 
     @property
     def is_integer(self) -> bool:
@@ -62,7 +78,11 @@ class DataType:
 
     @property
     def is_numeric(self) -> bool:
-        return self.is_integer or self.is_floating
+        return self.is_integer or self.is_floating or self.is_decimal
+
+    @property
+    def is_decimal(self) -> bool:
+        return self.name in _DECIMAL_LIMBS
 
     @property
     def is_temporal(self) -> bool:
@@ -74,7 +94,26 @@ class DataType:
 
     @property
     def is_string(self) -> bool:
-        return self.name == "utf8"
+        return self.name in ("utf8", "large_utf8", "utf8_view")
+
+    @property
+    def is_binary(self) -> bool:
+        return self.name in ("binary", "large_binary", "binary_view",
+                             "fixed_size_binary")
+
+    @property
+    def is_run_end_encoded(self) -> bool:
+        return self.name == "run_end_encoded"
+
+    @property
+    def is_union(self) -> bool:
+        return self.name == "union"
+
+    @property
+    def is_nested(self) -> bool:
+        return self.name in ("list", "large_list", "list_view",
+                             "large_list_view", "fixed_size_list",
+                             "struct", "map", "union", "run_end_encoded")
 
     @property
     def is_null(self) -> bool:
@@ -86,15 +125,23 @@ class DataType:
 
     @property
     def is_primitive(self) -> bool:
-        """Fixed-width, single-tensor representable."""
+        """Fixed-width, single-tensor representable (decimals and
+        interval[month_day_nano] are not, as in the reference)."""
+        if self.is_decimal or self.unit == "month_day_nano":
+            return False
         return self.is_numeric or self.is_boolean or self.is_temporal
+
+    @property
+    def is_single_tensor(self) -> bool:
+        """A PrimitiveColumn's type: the primitives and decimal32/64."""
+        return self.is_primitive or self.name in ("decimal32", "decimal64")
 
     def to_torch(self) -> torch.dtype:
         """torch dtype of the physical value tensor (signed storage for
         uint16/32/64)."""
         if self.name == "dictionary":
             return self.index_type.to_torch()
-        if self.name == "interval":
+        if self.name == "interval" and self.unit in _INTERVAL_TORCH:
             return _INTERVAL_TORCH[self.unit]
         m = _TORCH_DTYPE.get(self.name)
         if m is None:
@@ -105,7 +152,7 @@ class DataType:
         """Logical numpy dtype: the host view of the storage bits."""
         if self.name == "dictionary":
             return self.index_type.to_numpy()
-        if self.is_temporal:
+        if self.is_temporal or self.is_decimal:
             return self.storage_numpy()
         if self.name not in _TORCH_DTYPE:
             raise TypeError(f"{self} has no single-tensor physical dtype")
@@ -117,7 +164,20 @@ class DataType:
 
     @property
     def byte_width(self) -> int:
+        """Bytes per value of a fixed-width type; the multi-tensor ones
+        count all their planes (decimal128 16, decimal256 32,
+        interval[month_day_nano] 16, fixed_size_binary(w) w)."""
+        if self.name in _DECIMAL_LIMBS and _DECIMAL_LIMBS[self.name]:
+            return 8 * _DECIMAL_LIMBS[self.name]
+        if self.unit == "month_day_nano":
+            return 16
+        if self.name == "fixed_size_binary":
+            return self.list_size
         return self.to_numpy().itemsize
+
+    @property
+    def bit_width(self) -> int:
+        return 1 if self.name == "bool" else self.byte_width * 8
 
     def __repr__(self) -> str:
         if self.name == "dictionary":
@@ -126,6 +186,22 @@ class DataType:
             return f"timestamp[{self.unit}{', tz=' + self.tz if self.tz else ''}]"
         if self.unit is not None:
             return f"{self.name}[{self.unit}]"
+        if self.is_decimal:
+            return f"{self.name}({self.precision}, {self.scale})"
+        if self.name == "fixed_size_binary":
+            return f"fixed_size_binary({self.list_size})"
+        if self.name in ("list", "large_list", "list_view",
+                         "large_list_view"):
+            return f"{self.name}<{self.value_type!r}>"
+        if self.name == "fixed_size_list":
+            return f"fixed_size_list<{self.value_type!r}, {self.list_size}>"
+        if self.name in ("struct", "union"):
+            inner = ", ".join(f"{f.name}: {f.dtype!r}"
+                              for f in self.fields or ())
+            return f"struct<{inner}>" if self.name == "struct" \
+                else f"union<{inner}; mode={self.mode}>"
+        if self.name == "run_end_encoded":
+            return f"run_end_encoded<{self.index_type!r}, {self.value_type!r}>"
         return self.name
 
 
@@ -142,11 +218,17 @@ _TORCH_DTYPE = {
     "float64": torch.float64,
     "date32": torch.int32, "date64": torch.int64, "timestamp": torch.int64,
     "time32": torch.int32, "time64": torch.int64, "duration": torch.int64,
+    "decimal32": torch.int32, "decimal64": torch.int64,
 }
 
 # interval storage by unit: year_month i32 months, day_time i64
-# (days << 32 | millis); month_day_nano is two tensors (ROADMAP A7)
+# (days << 32 | millis); month_day_nano is three tensors
+# (core/nested.py IntervalMDNColumn)
 _INTERVAL_TORCH = {"year_month": torch.int32, "day_time": torch.int64}
+
+# u64 limb planes per decimal (0: one int32/int64 tensor)
+_DECIMAL_LIMBS = {"decimal32": 0, "decimal64": 0, "decimal128": 2,
+                  "decimal256": 4}
 
 _TEMPORAL_NAMES = ("date32", "date64", "timestamp", "time32", "time64",
                    "duration", "interval")
@@ -165,6 +247,11 @@ float16 = DataType("float16")
 float32 = DataType("float32")
 float64 = DataType("float64")
 utf8 = DataType("utf8")
+large_utf8 = DataType("large_utf8")
+utf8_view = DataType("utf8_view")
+binary = DataType("binary")
+large_binary = DataType("large_binary")
+binary_view = DataType("binary_view")
 date32 = DataType("date32")
 date64 = DataType("date64")
 
@@ -194,11 +281,40 @@ def duration(unit: str = "us") -> DataType:
                                            ("s", "ms", "us", "ns")))
 
 
-def interval(unit: str) -> DataType:
-    """Interval(YearMonth | DayTime); MonthDayNano's 128-bit layout joins
-    with ROADMAP A7."""
-    return DataType("interval", unit=_unit("interval", unit,
-                                           ("year_month", "day_time")))
+def interval(unit: str = "month_day_nano") -> DataType:
+    """Interval(YearMonth | DayTime | MonthDayNano) (arrow-buffer/src/
+    interval.rs); month_day_nano is IntervalMDNColumn's three tensors."""
+    return DataType("interval", unit=_unit(
+        "interval", unit, ("year_month", "day_time", "month_day_nano")))
+
+
+def fixed_size_binary(byte_width: int) -> DataType:
+    """FixedSizeBinary(w); the width rides in `list_size`."""
+    return DataType("fixed_size_binary", list_size=int(byte_width))
+
+
+def _decimal(name: str, most: int, precision: int, scale: int) -> DataType:
+    if not 1 <= precision <= most:
+        from .errors import ArrowInvalid
+        raise ArrowInvalid(f"{name} precision {precision} outside 1..{most}")
+    return DataType(name, precision=int(precision), scale=int(scale))
+
+
+def decimal32(precision: int, scale: int) -> DataType:
+    return _decimal("decimal32", 9, precision, scale)
+
+
+def decimal64(precision: int, scale: int) -> DataType:
+    return _decimal("decimal64", 18, precision, scale)
+
+
+def decimal128(precision: int, scale: int) -> DataType:
+    return _decimal("decimal128", 38, precision, scale)
+
+
+def decimal256(precision: int, scale: int) -> DataType:
+    """256-bit decimal: four little-endian u64 limb planes."""
+    return _decimal("decimal256", 76, precision, scale)
 
 _BY_NUMPY = {d.name: d for d in (int8, int16, int32, int64, uint8, uint16,
                                  uint32, uint64, float16, float32, float64)}
@@ -249,19 +365,156 @@ def dictionary(index_type: DataType, value_type: DataType,
                     value_type=value_type, ordered=True if ordered else None)
 
 
+def list_(value_type: DataType) -> DataType:
+    return DataType("list", value_type=value_type)
+
+
+def large_list(value_type: DataType) -> DataType:
+    """LargeList: int64 offsets (list_ has int32 ones)."""
+    return DataType("large_list", value_type=value_type)
+
+
+def list_view(value_type: DataType) -> DataType:
+    """ListView: offsets and sizes over a shared child."""
+    return DataType("list_view", value_type=value_type)
+
+
+def large_list_view(value_type: DataType) -> DataType:
+    return DataType("large_list_view", value_type=value_type)
+
+
+def fixed_size_list(value_type: DataType, list_size: int) -> DataType:
+    return DataType("fixed_size_list", value_type=value_type,
+                    list_size=int(list_size))
+
+
+def struct(fields) -> DataType:
+    return DataType("struct", fields=tuple(fields))
+
+
+def map_(key_type: DataType, item_type: DataType) -> DataType:
+    kv = struct([Field("key", key_type, nullable=False),
+                 Field("value", item_type)])
+    return DataType("map", value_type=kv)
+
+
+def union(fields, mode: str = "sparse", type_ids=None) -> DataType:
+    """Union(sparse | dense) (union_array.rs:123)."""
+    if mode not in ("sparse", "dense"):
+        from .errors import ArrowInvalid
+        raise ArrowInvalid(f"union mode {mode!r}")
+    fields = tuple(fields)
+    tids = tuple(type_ids) if type_ids is not None \
+        else tuple(range(len(fields)))
+    if len(tids) != len(fields):
+        from .errors import ArrowInvalid
+        raise ArrowInvalid("union: one type id per field")
+    return DataType("union", fields=fields, mode=mode, type_ids=tids)
+
+
+def run_end_encoded(run_end_type: DataType, value_type: DataType
+                    ) -> DataType:
+    """RunEndEncoded (run_array.rs:63); the run-end type rides in
+    `index_type`."""
+    if run_end_type.name not in ("int16", "int32", "int64"):
+        from .errors import ArrowInvalid
+        raise ArrowInvalid(f"run-end type {run_end_type!r}")
+    return DataType("run_end_encoded", index_type=run_end_type,
+                    value_type=value_type)
+
+
+def _merge_field_lists(existing, incoming):
+    """SchemaBuilder::try_merge (schema.rs:98): merge by name, append new
+    names in arrival order."""
+    out = list(existing)
+    index = {f.name: i for i, f in enumerate(out)}
+    for f in incoming:
+        i = index.get(f.name)
+        if i is None:
+            index[f.name] = len(out)
+            out.append(f)
+        else:
+            out[i] = out[i].try_merge(f)
+    return out
+
+
+def _merge_metadata(pairs, meta: dict, what: str) -> None:
+    from .errors import SchemaError
+    for k, v in pairs:
+        if k in meta and meta[k] != v:
+            raise SchemaError(f"conflicting metadata for key {k!r} {what}")
+        meta[k] = v
+
+
 @dataclass(frozen=True)
 class Field:
     name: str
     dtype: DataType
     nullable: bool = True
+    metadata: Tuple[Tuple[str, str], ...] = ()
+
+    def with_name(self, name: str) -> "Field":
+        return dataclasses.replace(self, name=name)
+
+    def with_nullable(self, nullable: bool) -> "Field":
+        return dataclasses.replace(self, nullable=nullable)
+
+    def try_merge(self, other: "Field") -> "Field":
+        """Unify with a same-named field (field.rs:697): metadata unions
+        (a conflicting key raises), struct and list children merge
+        recursively, null widens to the other type, other types must be
+        equal; nullability ORs."""
+        from .errors import SchemaError
+        meta: dict = {}
+        _merge_metadata(self.metadata, meta, f"merging field {self.name!r}")
+        _merge_metadata(other.metadata, meta,
+                        f"merging field {self.name!r}")
+        sd, od = self.dtype, other.dtype
+        nullable = self.nullable or other.nullable
+        if sd.name == "null":
+            dtype, nullable = od, True
+        elif od.name == "null":
+            dtype, nullable = sd, True
+        elif sd.name == "struct":
+            if od.name != "struct":
+                raise SchemaError(f"field {self.name!r}: {od!r} is not struct")
+            dtype = struct(_merge_field_lists(sd.fields, od.fields))
+        elif sd.name in ("list", "large_list"):
+            if od.name != sd.name:
+                raise SchemaError(
+                    f"field {self.name!r}: {od!r} is not {sd.name}")
+            elem = Field("item", sd.value_type).try_merge(
+                Field("item", od.value_type))
+            dtype = DataType(sd.name, value_type=elem.dtype)
+        else:
+            if sd != od:
+                raise SchemaError(
+                    f"field {self.name!r}: {od!r} does not equal {sd!r}")
+            dtype = sd
+        return Field(self.name, dtype, nullable, tuple(meta.items()))
 
 
 @dataclass(frozen=True)
 class Schema:
     fields: Tuple[Field, ...]
+    metadata: Tuple[Tuple[str, str], ...] = ()
 
     def __post_init__(self):
         object.__setattr__(self, "fields", tuple(self.fields))
+
+    def project(self, indices) -> "Schema":
+        return Schema(tuple(self.fields[i] for i in indices), self.metadata)
+
+    @staticmethod
+    def try_merge(schemas) -> "Schema":
+        """Unify schemas field by field (schema.rs:295): fields match by
+        name (new names append); metadata unions, a conflict raises."""
+        meta: dict = {}
+        fields: list = []
+        for s in schemas:
+            _merge_metadata(s.metadata, meta, "of the schemas")
+            fields = _merge_field_lists(fields, s.fields)
+        return Schema(tuple(fields), tuple(meta.items()))
 
     @property
     def names(self):

@@ -16,7 +16,9 @@ arrow-arith/src/aggregate.rs).
   - bit_and / bit_or / bit_xor fold the valid values pairwise on the
     device, null rows taking the identity
   - float sums are IEEE; their order is torch's, not XLA's
-The decimal arms wait for core/nested.py (ROADMAP A7.3).
+  - decimal sum_ / min_ / max_ of any width are exact, on the host, in
+    Python ints (aggregate.py:199-215): a Scalar of the input type
+    holding a `decimal.Decimal`, null when no row is valid
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ _LIMB_ROWS = 1 << 30        # rows per exact limb sum: 2^30 x 2^32 < 2^63
 
 def sum_(col: PrimitiveColumn) -> Scalar:
     """Wrapping sum (aggregate.rs sum_array)."""
+    if col.dtype.is_decimal:
+        return _decimal_reduce(col, sum)
     if not col.dtype.is_numeric:
         raise ArrowTypeError(f"sum of {col.dtype!r}")
     if count(col) == 0:
@@ -101,6 +105,8 @@ def _extreme_row(col: Column, want_max: bool) -> Optional[int]:
 
 
 def _extremum(col: Column, want_max: bool) -> Scalar:
+    if col.dtype.is_decimal:
+        return _decimal_reduce(col, max if want_max else min)
     i = None if count(col) == 0 else _extreme_row(col, want_max)
     if isinstance(col, PrimitiveColumn):
         return Scalar(0, col.dtype, valid=False) if i is None \
@@ -198,3 +204,20 @@ def bit_or(col: PrimitiveColumn) -> Scalar:
 
 def bit_xor(col: PrimitiveColumn) -> Scalar:
     return _bit_reduce(col, "bit_xor")
+
+
+def _decimal_reduce(col: Column, fold: Callable) -> Scalar:
+    """sum / min / max of a decimal column's valid rows in Python ints,
+    as a Decimal of the input's scale (aggregate.py:199-215)."""
+    from decimal import Decimal
+    from ..core.nested import DecimalColumn
+    if isinstance(col, DecimalColumn):
+        vals = [v for v in col.to_pyints() if v is not None]
+    else:
+        raw = col.values.cpu().tolist()
+        valid = None if col.validity is None else col.validity.cpu().tolist()
+        vals = raw if valid is None else [x for x, ok in zip(raw, valid)
+                                          if ok]
+    if not vals:
+        return Scalar(None, col.dtype, valid=False)
+    return Scalar(Decimal(fold(vals)).scaleb(-col.dtype.scale), col.dtype)

@@ -27,10 +27,11 @@ def unary(col: PrimitiveColumn, fn: Callable,
 
 
 def binary(lhs: Datum, rhs: Datum, fn: Callable,
-           out_dtype: Optional[dt.DataType] = None) -> PrimitiveColumn:
+           out_dtype: Optional[dt.DataType] = None,
+           require_same_type: bool = True) -> PrimitiveColumn:
     """Binary kernel: joint validity = union, values = fn(l, r)."""
     lv, rv, mask, _, ldt, rdt = broadcast_pair(lhs, rhs)
-    if ldt != rdt:
+    if require_same_type and ldt != rdt:
         raise ArrowError(
             f"binary kernel type mismatch: {ldt!r} vs {rdt!r} "
             "(cast first, as in the reference)")
@@ -40,13 +41,14 @@ def binary(lhs: Datum, rhs: Datum, fn: Callable,
 
 
 def binary_with_flag(lhs: Datum, rhs: Datum, fn: Callable,
-                     out_dtype: Optional[dt.DataType] = None
+                     out_dtype: Optional[dt.DataType] = None,
+                     require_same_type: bool = True
                      ) -> Tuple[PrimitiveColumn, torch.Tensor]:
     """Checked binary kernel (arity.rs try_binary): fn returns
     (values, elementwise_error).  Errors on null slots are ignored.
     Returns (column, 0-d bool error flag on the device)."""
     lv, rv, mask, _, ldt, rdt = broadcast_pair(lhs, rhs)
-    if ldt != rdt:
+    if require_same_type and ldt != rdt:
         raise ArrowError(f"binary kernel type mismatch: {ldt!r} vs {rdt!r}")
     out, err = fn(lv, rv)
     if mask is not None:

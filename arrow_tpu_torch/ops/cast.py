@@ -1,6 +1,7 @@
 """Type conversion (counterpart of arrow_tpu/ops/cast.py: CastOptions,
-can_cast, cast, _all_null, _temporal_scale, _apply_failures and
-_cast_primitive, cast.py:54-420; arrow-cast/src/cast/mod.rs).
+can_cast, cast, _all_null, _temporal_scale, _apply_failures,
+_cast_primitive and _cast_decimal, cast.py:54-420,824-970;
+arrow-cast/src/cast/mod.rs).
 
     safe=True  -> a value that cannot convert becomes null
     safe=False -> raises CastError (one host sync; inside `fuse` on the
@@ -15,10 +16,19 @@ Families of this slice:
   temporal <-> numeric   through the storage integer
   dictionary             values cast with the codes kept (key narrowing
                          through the checked cast), or unpacked
-  identity, null -> T    no-op, all-null column
+  identity, null -> T    no-op, all-null column of any layout
+  decimal                decimal <-> decimal rescale (half away from
+                         zero), integer/bool/float/utf8 -> decimal,
+                         decimal -> integer (truncating)/float/utf8:
+                         host-exact Python ints, as the reference
+                         computes them (cast/decimal.rs); the unscaled
+                         values make one round trip to the host
 
-String, decimal, list, map, struct, REE and interval casts join with
-ROADMAP A7 and raise ArrowNotImplementedError.
+The string, list, map, struct, REE and interval casts raise
+ArrowNotImplementedError naming ROADMAP A7.7.  A decimal cast that fails
+a value makes it null when `safe` is False and raises CastError when it
+is True: the reference's rule for decimals (cast.py:860-868), the
+opposite of its other families.
 
 Bits that torch does not give by itself, each matching the reference's
 XLA conversion:
@@ -35,6 +45,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import dtypes as dt
@@ -57,8 +68,8 @@ class CastOptions:
 
 
 def can_cast(from_dt: dt.DataType, to_dt: dt.DataType) -> bool:
-    """can_cast_types (mod.rs:92), cast.py:59-122 over the port's types:
-    the decimal, list, map, struct and REE arms have no type here."""
+    """can_cast_types (mod.rs:92), cast.py:59-122, for the families the
+    port casts."""
     if from_dt == to_dt:
         return True
     if from_dt.is_null or to_dt.is_null:
@@ -83,8 +94,8 @@ def can_cast(from_dt: dt.DataType, to_dt: dt.DataType) -> bool:
     prim = lambda d: d.is_numeric or d.is_boolean or d.is_temporal
     if prim(from_dt) and prim(to_dt):
         return True
-    if from_dt.is_string and (prim(to_dt) or to_dt.is_string
-                              or to_dt.is_dictionary):
+    if (from_dt.is_string or from_dt.is_binary) and (
+            prim(to_dt) or to_dt.is_string or to_dt.is_dictionary):
         return True
     if prim(from_dt) and to_dt.is_string:
         return True
@@ -92,11 +103,17 @@ def can_cast(from_dt: dt.DataType, to_dt: dt.DataType) -> bool:
         inner_from = from_dt.value_type if from_dt.is_dictionary else from_dt
         inner_to = to_dt.value_type if to_dt.is_dictionary else to_dt
         return can_cast(inner_from, inner_to)
+    if from_dt.is_decimal:
+        return (to_dt.is_decimal or to_dt.is_integer or to_dt.is_floating
+                or to_dt.is_string)
+    if to_dt.is_decimal:
+        return (from_dt.is_integer or from_dt.is_floating
+                or from_dt.is_boolean or from_dt.is_string)
     return False
 
 
 def _later(what: str) -> ArrowNotImplementedError:
-    return ArrowNotImplementedError(f"cast {what} joins with ROADMAP A7")
+    return ArrowNotImplementedError(f"cast {what} joins with ROADMAP A7.7")
 
 
 def cast(col: Column, to: dt.DataType,
@@ -133,6 +150,8 @@ def cast(col: Column, to: dt.DataType,
                 None if values.validity is None
                 else values.validity.to(col.device), _canonical=True)
         return cast(take(values, idx), to, options)
+    if from_dt.is_decimal or to.is_decimal:
+        return _cast_decimal(col, to, options)
     if not isinstance(col, PrimitiveColumn) or not to.is_primitive or \
             "interval" in (from_dt.name, to.name):
         raise _later(f"{from_dt!r} -> {to!r}")
@@ -140,24 +159,77 @@ def cast(col: Column, to: dt.DataType,
 
 
 def _all_null(to: dt.DataType, n: int, device) -> Column:
-    """All-null column of a primitive, dictionary or null target
-    (cast/mod.rs:306 Null -> T arms)."""
+    """All-null column of any target type (cast/mod.rs:306 Null -> T
+    arms; cast.py:240-310)."""
+    from ..core.column import ListColumn, StructColumn
+    from ..core import nested as nd
     if to.is_null:
         return NullColumn(n, device)
     mask = torch.zeros((n,), dtype=torch.bool, device=device) if n else None
+
+    def zeros(m, dtype, *shape):
+        return torch.zeros((m,) + shape, dtype=dtype, device=device)
+    name = to.name
     if to.is_dictionary:
-        return DictionaryColumn(
-            torch.zeros((n,), dtype=to.index_type.to_torch(), device=device),
-            _all_null(to.value_type, 1, device), mask)
-    if to.is_string:
-        return StringColumn(torch.zeros((n + 1,), dtype=torch.int32,
-                                        device=device),
-                            torch.zeros((0,), dtype=torch.uint8,
-                                        device=device), to, mask)
-    if not to.is_primitive:
+        return DictionaryColumn(zeros(n, to.index_type.to_torch()),
+                                _all_null(to.value_type, 1, device), mask)
+    if name == "utf8":
+        return StringColumn(zeros(n + 1, torch.int32),
+                            zeros(0, torch.uint8), to, mask)
+    if name in ("decimal128", "decimal256"):
+        k = 2 if name == "decimal128" else 4
+        return nd.DecimalColumn(zeros(n, torch.int64, k), to, mask)
+    if to.unit == "month_day_nano":
+        return nd.IntervalMDNColumn(zeros(n, torch.int32),
+                                    zeros(n, torch.int32),
+                                    zeros(n, torch.int64), mask)
+    if name in ("list", "large_list"):
+        return ListColumn(zeros(n + 1, torch.int64 if name == "large_list"
+                                else torch.int32),
+                          _all_null(to.value_type, 0, device), mask,
+                          large=name == "large_list")
+    if name in ("list_view", "large_list_view"):
+        odt = torch.int64 if name == "large_list_view" else torch.int32
+        return nd.ListViewColumn(zeros(n, odt), zeros(n, odt),
+                                 _all_null(to.value_type, 0, device), mask,
+                                 to)
+    if name == "union":
+        # no top-level validity: rows of the first child, all null there
+        tid = torch.full((n,), to.type_ids[0], dtype=torch.int8,
+                         device=device)
+        if to.mode == "sparse":
+            kids = [_all_null(f.dtype, n, device) for f in to.fields]
+            return nd.UnionColumn(tid, None, kids, to.fields, to.type_ids)
+        kids = [_all_null(f.dtype, n if i == 0 else 0, device)
+                for i, f in enumerate(to.fields)]
+        return nd.UnionColumn(tid, torch.arange(n, dtype=torch.int32,
+                                                device=device),
+                              kids, to.fields, to.type_ids)
+    if name == "run_end_encoded":
+        re_dt = to.index_type.to_torch()
+        if n == 0:
+            return nd.RunEndColumn(zeros(0, re_dt),
+                                   _all_null(to.value_type, 0, device), 0)
+        return nd.RunEndColumn(torch.full((1,), n, dtype=re_dt,
+                                          device=device),
+                               _all_null(to.value_type, 1, device), n)
+    if name == "fixed_size_list":
+        return nd.FixedSizeListColumn(
+            _all_null(to.value_type, n * to.list_size, device),
+            to.list_size, mask)
+    if name == "fixed_size_binary":
+        return nd.FixedSizeBinaryColumn(zeros(n, torch.uint8, to.list_size),
+                                        mask)
+    if name == "struct":
+        return StructColumn(tuple(_all_null(f.dtype, n, device)
+                                  for f in to.fields), to.fields, mask)
+    if name == "map":
+        kv = _all_null(to.value_type, 0, device)
+        return nd.MapColumn(zeros(n + 1, torch.int32),
+                            StructColumn(kv.children, kv.fields), mask)
+    if not to.is_single_tensor:
         raise _later(f"null -> {to!r}")
-    return PrimitiveColumn(torch.zeros((n,), dtype=to.to_torch(),
-                                       device=device), to, mask,
+    return PrimitiveColumn(zeros(n, to.to_torch()), to, mask,
                            _canonical=True)
 
 
@@ -318,4 +390,123 @@ def _cast_primitive(col: PrimitiveColumn, to: dt.DataType,
         if from_dt.is_floating:
             return _float_to_int(v, to, col.validity, options)
         return _int_to_int(v, from_dt, to, col.validity, options)
+    raise _later(f"{from_dt!r} -> {to!r}")
+
+
+# ---- decimal casts (cast/decimal.rs; cast.py:824-970) ---------------------
+
+def _dec_ints(col: Column) -> list:
+    """A decimal column's unscaled Python ints (0 at nulls)."""
+    from ..core.nested import DecimalColumn
+    if isinstance(col, DecimalColumn):
+        return [0 if v is None else v for v in col.to_pyints()]
+    return col.values.cpu().tolist()
+
+
+def _dec_build(ints: list, to: dt.DataType, validity: vd.Mask,
+               device) -> Column:
+    """A decimal column of unscaled ints on `device`."""
+    from ..core.nested import DecimalColumn
+    if to.name in ("decimal32", "decimal64"):
+        return PrimitiveColumn(torch.tensor(ints, dtype=to.to_torch(),
+                                            device=device), to, validity)
+    return DecimalColumn.from_pyints(ints, to, validity, device=device)
+
+
+def _round_half_away(num: int, den: int) -> int:
+    """num / den rounded half away from zero (arrow-rs decimal rescale)."""
+    q, r = divmod(abs(num), den)
+    if 2 * r >= den:
+        q += 1
+    return q if num >= 0 else -q
+
+
+def _cast_decimal(col: Column, to: dt.DataType,
+                  options: CastOptions) -> Column:
+    """decimal <-> decimal / integer / bool / float / utf8, exact on the
+    host in Python ints (cast.py:852-969)."""
+    from_dt, device = col.dtype, col.device
+    valid = None if col.validity is None else col.validity.cpu().numpy()
+
+    def finish(failed):
+        validity = valid
+        if any(failed):
+            if not options.safe:
+                raise CastError("decimal cast overflow")
+            bad = np.asarray(failed)
+            validity = ~bad if validity is None else validity & ~bad
+        return None if validity is None else \
+            torch.from_numpy(np.ascontiguousarray(validity)).to(device)
+
+    def checked(ys, limit):
+        failed = [abs(y) >= limit for y in ys]
+        return [0 if f else y for y, f in zip(ys, failed)], finish(failed)
+
+    if from_dt.is_decimal and to.is_decimal:
+        ds = to.scale - from_dt.scale
+        ys = [x * 10 ** ds if ds >= 0 else _round_half_away(x, 10 ** -ds)
+              for x in _dec_ints(col)]
+        ys, v = checked(ys, 10 ** to.precision)
+        return _dec_build(ys, to, v, device)
+    if from_dt.is_decimal:
+        ints, scale = _dec_ints(col), 10 ** from_dt.scale
+        v = None if valid is None else col.validity
+        if to.is_integer:
+            lo, hi = dt.integer_bounds(to)
+            ys = [abs(x) // scale * (1 if x >= 0 else -1) for x in ints]
+            failed = [not lo <= y <= hi for y in ys]
+            out = np.asarray([0 if f else y for y, f in zip(ys, failed)],
+                             to.to_numpy())
+            return PrimitiveColumn(torch.from_numpy(out.view(
+                to.storage_numpy())).to(device), to, finish(failed))
+        if to.is_floating:
+            out = np.asarray([x / scale for x in ints], np.float64)
+            return PrimitiveColumn(torch.from_numpy(
+                out.astype(to.to_numpy())).to(device), to, v)
+        if to.name == "utf8":
+            s = from_dt.scale
+            text = [str(x) if s == 0 else
+                    f"{'-' if x < 0 else ''}{abs(x) // 10 ** s}."
+                    f"{str(abs(x) % 10 ** s).zfill(s)}" for x in ints]
+            if valid is not None:
+                text = [t if ok else "" for t, ok in zip(text, valid)]
+            return StringColumn.from_pylist(text, to, device=device) \
+                .with_validity(v)
+        raise _later(f"{from_dt!r} -> {to!r}")
+    limit = 10 ** to.precision
+    if from_dt.is_integer or from_dt.is_boolean:
+        xs = dt.widen(col.values, from_dt).tolist()
+        if from_dt.name == "uint64":
+            xs = [x % (1 << 64) for x in xs]
+        ys, v = checked([x * 10 ** to.scale for x in xs], limit)
+        return _dec_build(ys, to, v, device)
+    if from_dt.is_floating:
+        src = col.values.cpu().numpy().astype(np.float64)
+        ys, failed = [], []
+        for x in src:
+            if not np.isfinite(x):
+                ys.append(0)
+                failed.append(True)
+                continue
+            y = int(np.round(x * 10.0 ** to.scale))
+            failed.append(abs(y) >= limit)
+            ys.append(0 if failed[-1] else y)
+        return _dec_build(ys, to, finish(failed), device)
+    if from_dt.name == "utf8":
+        from decimal import Decimal
+        ys, failed = [], []
+        for t in col.to_pylist():
+            if t is None:
+                ys.append(0)
+                failed.append(False)
+                continue
+            try:
+                y = int((Decimal(t) * 10 ** to.scale)
+                        .to_integral_value(rounding="ROUND_HALF_UP"))
+                bad = abs(y) >= limit
+            except Exception:
+                y, bad = 0, True
+            failed.append(bad)
+            ys.append(0 if bad else y)
+        return _dec_build(ys, to, finish(failed), device)
     raise _later(f"{from_dt!r} -> {to!r}")

@@ -7,7 +7,11 @@ as IEEE values (NaN != NaN); the total order lives in ops/row_format.py.
 Unsigned values on signed storage (dtypes.py) order through the
 sign-flip map.  Dictionary and string operands go to ops/strings.py
 (`compare`) before anything else, so a raw Python str passes straight
-through.  The decimal arm (cmp.py:104-178) joins with ROADMAP A7.
+through.  Decimal columns (cmp.py:104-178) rescale to their common
+scale through the exact host cast (ops/cast.py), then compare on the
+device: decimal32/64 as ints, decimal128/256 lexicographically over
+their limb planes from the top, the top limb signed and the lower ones
+unsigned (through the sign-flip map).
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ import torch
 
 from .. import dtypes as dt
 from ..core import validity as vd
-from ..core.column import DictionaryColumn, PrimitiveColumn, StringColumn
+from ..core.column import (Column, DictionaryColumn, PrimitiveColumn,
+                           StringColumn)
 from ..core.datum import Datum, Scalar, as_datum, broadcast_pair
 from ..errors import ArrowTypeError
 
@@ -45,6 +50,8 @@ def _dispatch(op: str, lhs, rhs) -> PrimitiveColumn:
     if _is_stringy(lhs) or _is_stringy(rhs):
         from . import strings
         return strings.compare(op, lhs, rhs)
+    if any(isinstance(x, Column) and x.dtype.is_decimal for x in (lhs, rhs)):
+        return _compare_decimal(op, lhs, rhs)
     lhs, rhs = as_datum(lhs), as_datum(rhs)
     lv, rv, mask, _, ldt, rdt = broadcast_pair(lhs, rhs)
     if ldt != rdt and not (ldt.is_numeric and rdt.is_numeric
@@ -97,3 +104,55 @@ def _mask(x: Datum, n: int, device) -> torch.Tensor:
     if isinstance(x, Scalar):
         return torch.full((n,), x.valid, dtype=torch.bool, device=device)
     return vd.make_mask(n, x.validity, device)
+
+
+def _limb_planes(c, k: int) -> torch.Tensor:
+    """(n, k) int64 limb planes of a decimal column, sign-extended."""
+    from ..core.nested import DecimalColumn
+    lb = c.limbs if isinstance(c, DecimalColumn) \
+        else c.values.to(torch.int64)[:, None]
+    if lb.shape[1] < k:
+        ext = (lb[:, -1:] >> 63).expand(-1, k - lb.shape[1])
+        lb = torch.cat([lb, ext], 1)
+    return lb
+
+
+def _compare_decimal(op: str, lhs, rhs) -> PrimitiveColumn:
+    """Decimals of any widths and scales (cmp.py:110-178)."""
+    from ..core.nested import DecimalColumn
+    from .cast import CastOptions, cast
+    ld, rd = as_datum(lhs).dtype, as_datum(rhs).dtype
+    if not (ld.is_decimal and rd.is_decimal):
+        raise ArrowTypeError(f"cannot compare {ld!r} with {rd!r}")
+    s_ = max(ld.scale, rd.scale)
+
+    def rescaled(c):
+        # lossless: the precision grows with the scale
+        p = c.dtype.precision + (s_ - c.dtype.scale)
+        if p > 76:
+            raise ArrowTypeError("decimal comparison scale overflow")
+        ctor = dt.decimal32 if p <= 9 else dt.decimal64 if p <= 18 \
+            else dt.decimal128 if p <= 38 else dt.decimal256
+        return cast(c, ctor(p, s_), CastOptions(safe=False))
+    lc, rc = rescaled(lhs), rescaled(rhs)
+    mask = vd.union(lc.validity, rc.validity)
+    if not (isinstance(lc, DecimalColumn) or isinstance(rc, DecimalColumn)):
+        return PrimitiveColumn(_OPS[op](lc.values, rc.values), dt.bool_,
+                               mask)
+    k = max(c.limbs.shape[1] if isinstance(c, DecimalColumn) else 1
+            for c in (lc, rc))
+    la, ra = _limb_planes(lc, k), _limb_planes(rc, k)
+    lt = torch.zeros(la.shape[0], dtype=torch.bool, device=la.device)
+    tied = torch.ones_like(lt)
+    for j in range(k - 1, -1, -1):
+        a, b = la[:, j], ra[:, j]
+        if j < k - 1:                        # lower limbs are unsigned
+            a, b = a ^ _SIGN, b ^ _SIGN
+        lt = lt | (tied & (a < b))
+        tied = tied & (a == b)
+    out = {"eq": tied, "neq": ~tied, "lt": lt, "lt_eq": lt | tied,
+           "gt": ~(lt | tied), "gt_eq": ~lt}[op]
+    return PrimitiveColumn(out, dt.bool_, mask)
+
+
+_SIGN = -(1 << 63)

@@ -1,6 +1,6 @@
 """concat and interleave (counterpart of arrow_tpu/ops/concat.py:
 concat, _concat_dictionaries_merged, concat_tables, interleave and
-interleave_tables, concat.py:39-92,203-269).
+interleave_tables, concat.py:39-269).
 
 One torch.cat per buffer, on the columns' device:
   null        -> a null column of the summed length
@@ -15,8 +15,24 @@ One torch.cat per buffer, on the columns' device:
                  values pass the index type's range, the values
                  deduplicated in first-occurrence order and the codes
                  remapped (merge_dictionary_values, concat.rs:112)
+  list, large list, map
+              -> the children concatenated, each column's offsets shifted
+                 by the child rows before it (on the device)
+  struct, fixed-size list, sparse union
+              -> each child concatenated (a union's type ids too)
+  fixed-size binary, decimal128/256, interval[month_day_nano]
+              -> each plane concatenated
+  dense union -> the children concatenated, each column's offsets
+                 shifted by its child's rows before it (per type id)
+  run-end     -> the run ends shifted by the rows before them (runs that
+                 meet at a seam stay separate, as in arrow-rs); a total
+                 past the run-end type raises
+  list view   -> the children concatenated, each column's offsets
+                 shifted by the child rows before it, the sizes kept
+The reference's concat of large lists returns the `list` type over
+int64 offsets (ROADMAP C9); here it stays large_list.
 interleave is a concat and one take by the flat row of each (array,
-row) pair (interleave.rs:70).  Nested layouts join with ROADMAP A7.3.
+row) pair (interleave.rs:70).
 """
 
 from __future__ import annotations
@@ -28,10 +44,14 @@ import torch
 
 from .. import dtypes as dt
 from ..core import validity as vd
-from ..core.column import (Column, DictionaryColumn, NullColumn,
-                           PrimitiveColumn, StringColumn)
+from ..core.column import (Column, DictionaryColumn, ListColumn, NullColumn,
+                           PrimitiveColumn, StringColumn, StructColumn)
+from ..core.nested import (DecimalColumn, FixedSizeBinaryColumn,
+                           FixedSizeListColumn, IntervalMDNColumn,
+                           ListViewColumn, MapColumn, RunEndColumn,
+                           UnionColumn)
 from ..core.table import Table
-from ..errors import ArrowInvalid, ArrowNotImplementedError, ArrowTypeError
+from ..errors import ArrowInvalid, ArrowTypeError
 from .take import take
 
 __all__ = ["concat", "concat_tables", "interleave", "interleave_tables"]
@@ -63,19 +83,95 @@ def concat(cols: Sequence[Column]) -> Column:
         return _concat_strings(cols)
     if isinstance(c0, DictionaryColumn):
         return _concat_dictionaries(cols)
-    raise ArrowNotImplementedError(
-        f"concat of {type(c0).__name__} joins with ROADMAP A7.3")
+    mask = _concat_masks(cols)
+    if isinstance(c0, (ListColumn, MapColumn)):
+        kids = [c.child if isinstance(c, ListColumn) else c.entries
+                for c in cols]
+        offsets = _shifted_offsets([c.offsets for c in cols])
+        if isinstance(c0, MapColumn):
+            return MapColumn(offsets, concat(kids), mask)
+        return ListColumn(offsets, concat(kids), mask, c0._large())
+    if isinstance(c0, StructColumn):
+        return StructColumn(_concat_children(cols), c0.fields, mask)
+    if isinstance(c0, FixedSizeListColumn):
+        return FixedSizeListColumn(concat([c.child for c in cols]),
+                                   c0.list_size, mask)
+    if isinstance(c0, FixedSizeBinaryColumn):
+        return FixedSizeBinaryColumn(torch.cat([c.data for c in cols]), mask)
+    if isinstance(c0, DecimalColumn):
+        return DecimalColumn(torch.cat([c.limbs for c in cols]), c0.dtype,
+                             mask)
+    if isinstance(c0, IntervalMDNColumn):
+        return IntervalMDNColumn(*(torch.cat([getattr(c, p) for c in cols])
+                                   for p in ("months", "days", "nanos")),
+                                 mask)
+    if isinstance(c0, UnionColumn):
+        return _concat_unions(cols)
+    if isinstance(c0, RunEndColumn):
+        return _concat_runs(cols)
+    if isinstance(c0, ListViewColumn):
+        base = np.cumsum([0] + [len(c.child) for c in cols[:-1]])
+        odt = torch.int64 if c0.dtype.name == "large_list_view" \
+            else torch.int32
+        offsets = torch.cat([(c.offsets.to(torch.int64) + int(b)).to(odt)
+                             for c, b in zip(cols, base)])
+        return ListViewColumn(offsets, torch.cat([c.sizes for c in cols]),
+                              concat([c.child for c in cols]), mask,
+                              c0.dtype)
+    raise ArrowTypeError(f"concat of {type(c0).__name__}")
+
+
+def _concat_children(cols) -> tuple:
+    return tuple(concat([c.children[i] for c in cols])
+                 for i in range(len(cols[0].children)))
+
+
+def _shifted_offsets(offsets) -> torch.Tensor:
+    """(n+1,) offsets of consecutive columns as one, each shifted by the
+    elements before it, on the device (no sync)."""
+    ends = torch.stack([o[-1].to(torch.int64) for o in offsets])
+    bases = torch.cumsum(ends, 0) - ends
+    return torch.cat([offsets[0]] + [(o[1:] + b).to(offsets[0].dtype)
+                                     for o, b in zip(offsets[1:], bases[1:])])
 
 
 def _concat_strings(cols: Sequence[StringColumn]) -> StringColumn:
     """Offsets shifted by the byte counts before them, on the device."""
+    return StringColumn(_shifted_offsets([c.offsets for c in cols]),
+                        torch.cat([c.data for c in cols]), cols[0].dtype,
+                        _concat_masks(cols))
+
+
+def _concat_unions(cols: Sequence[UnionColumn]) -> UnionColumn:
+    """Sparse: every child concatenated.  Dense: the children
+    concatenated, each column's offsets shifted per type id by its
+    child's rows in the columns before it (concat.py:146-165)."""
     c0 = cols[0]
-    ends = torch.stack([c.offsets[-1].to(torch.int64) for c in cols])
-    bases = torch.cumsum(ends, 0) - ends
-    offsets = [c0.offsets] + [(c.offsets[1:] + b).to(c0.offsets.dtype)
-                              for c, b in zip(cols[1:], bases[1:])]
-    return StringColumn(torch.cat(offsets), torch.cat([c.data for c in cols]),
-                        c0.dtype, _concat_masks(cols))
+    tids = torch.cat([c.type_ids for c in cols])
+    children = _concat_children(cols)
+    if c0.offsets is None:
+        return UnionColumn(tids, None, children, c0.fields, c0.ids)
+    shifted, bases = [], [0] * len(c0.children)
+    for c in cols:
+        shift = torch.zeros(len(c), dtype=c.offsets.dtype, device=c.device)
+        for i, tid in enumerate(c.ids):
+            shift = torch.where(c.type_ids == tid, bases[i], shift)
+            bases[i] += len(c.children[i])
+        shifted.append(c.offsets + shift)
+    return UnionColumn(tids, torch.cat(shifted), children, c0.fields, c0.ids)
+
+
+def _concat_runs(cols: Sequence[RunEndColumn]) -> RunEndColumn:
+    """Run ends shifted by the rows before them (concat.py:167-181)."""
+    base = np.cumsum([0] + [len(c) for c in cols])
+    re_dt = cols[0].run_ends.dtype
+    if base[-1] > torch.iinfo(re_dt).max:
+        raise ArrowInvalid(f"run-end overflow: total length {base[-1]} "
+                           f"exceeds {re_dt}")
+    ends = torch.cat([(c.run_ends.to(torch.int64) + int(b)).to(re_dt)
+                      for c, b in zip(cols, base)])
+    return RunEndColumn(ends, concat([c.values for c in cols]),
+                        int(base[-1]))
 
 
 def _concat_dictionaries(cols: Sequence[DictionaryColumn]

@@ -9,11 +9,16 @@ arrow_tpu/ops/filter.py; arrow-select/src/filter.rs).
 `FilterPredicate` is computed once and reused across all columns of a
 batch (FilterBuilder::optimize, filter.rs:171-189), and every value and
 validity buffer of a batch rides ONE compaction (kernels/compact.py).
-A string column is gathered by the kept rows' positions (ops/take.py),
-which that same compaction emits; a null column takes the count
-(filter.py:103-165).  The eager API syncs the popcount (one scalar);
+The fixed-width buffers are those of primitive (decimal32/64
+included) and dictionary columns and interval[month_day_nano]'s three
+planes.  Every other layout -- string, list, large list, map, struct,
+fixed-size list and binary, decimal128/256, union, run-end, list view --
+is taken (ops/take.py, its range gather for the offsets layouts) by the
+kept rows' positions, which that same compaction emits; the reference
+takes them by its `pred.indices` (filter.py:103-166).  A null column
+takes the count.  The eager API syncs the popcount (one scalar);
 `filter_static` / `filter_static_multi` return full-length outputs and
-a device count without a sync.  Nested layouts join with ROADMAP A7.3.
+a device count without a sync.
 """
 
 from __future__ import annotations
@@ -25,10 +30,11 @@ import torch
 from .. import dtypes as dt
 from ..config import sync_guard
 from ..core.column import (Column, DictionaryColumn, NullColumn,
-                           PrimitiveColumn, StringColumn)
+                           PrimitiveColumn)
 from ..core.datum import as_datum
+from ..core.nested import IntervalMDNColumn
 from ..core.table import Table
-from ..errors import ArrowInvalid, ArrowNotImplementedError
+from ..errors import ArrowInvalid
 from ..kernels.compact import compact
 from .take import take
 
@@ -65,50 +71,57 @@ def compact_by_mask(keep: torch.Tensor, count: int, *arrays: torch.Tensor):
 
 
 def _fixed(c: Column):
-    """The fixed-width buffers of a column the compaction carries: values
-    or codes, then validity; None for a layout that is gathered."""
+    """The fixed-width buffers of a column the compaction carries, then
+    its validity; None for a layout taken by the positions."""
     if isinstance(c, PrimitiveColumn):
-        data = c.values
+        data = (c.values,)
     elif isinstance(c, DictionaryColumn):
-        data = c.codes
-    elif isinstance(c, (StringColumn, NullColumn)):
-        return None
+        data = (c.codes,)
+    elif isinstance(c, IntervalMDNColumn):
+        data = (c.months, c.days, c.nanos)
     else:
-        raise ArrowNotImplementedError(
-            f"filter of {type(c).__name__} joins with ROADMAP A7.3")
-    return (data,) if c.validity is None else (data, c.validity)
+        return None
+    return data if c.validity is None else data + (c.validity,)
+
+
+def _rebuild(c: Column, outs) -> Column:
+    """Column `c`'s kept rows from its compacted buffers (`outs` yields
+    them in _fixed's order)."""
+    if isinstance(c, PrimitiveColumn):
+        vals = next(outs)
+        return PrimitiveColumn(vals, c.dtype, None if c.validity is None
+                               else next(outs), _canonical=True)
+    if isinstance(c, DictionaryColumn):
+        codes = next(outs)
+        return DictionaryColumn(codes, c.values, None if c.validity is None
+                                else next(outs), _canonical=True,
+                                ordered=bool(c.dtype.ordered))
+    planes = (next(outs), next(outs), next(outs))
+    return IntervalMDNColumn(*planes, None if c.validity is None
+                             else next(outs))
 
 
 def _filter_columns(columns, pred: FilterPredicate):
     """Every column's kept rows, from ONE K1 launch over the batch's
-    fixed-width buffers, with the kept rows' positions when a string
-    column needs them (filter.py:103-165)."""
+    fixed-width buffers, with the kept rows' positions when another
+    layout is taken by them (filter.py:103-166)."""
     fixed = [_fixed(c) for c in columns]
     buffers = [b for f in fixed if f is not None for b in f]
-    strings = any(isinstance(c, StringColumn) for c in columns)
+    gathered = any(f is None and not isinstance(c, NullColumn)
+                   for c, f in zip(columns, fixed))
     outs = iter(())
-    if buffers or strings:
+    if buffers or gathered:
         outs, _ = compact(pred.keep, buffers, out_cap=pred.count,
-                          positions=torch.int64 if strings else None)
+                          positions=torch.int64 if gathered else None)
         outs = iter(outs)
-    cols = []
-    for c, f in zip(columns, fixed):
-        if f is None:
-            cols.append(None)
-            continue
-        vals = next(outs)
-        validity = None if c.validity is None else next(outs)
-        cols.append(PrimitiveColumn(vals, c.dtype, validity, _canonical=True)
-                    if isinstance(c, PrimitiveColumn) else
-                    DictionaryColumn(vals, c.values, validity,
-                                     _canonical=True,
-                                     ordered=bool(c.dtype.ordered)))
+    cols = [None if f is None else _rebuild(c, outs)
+            for c, f in zip(columns, fixed)]
     positions = next(outs, None)
     for i, c in enumerate(columns):
-        if isinstance(c, StringColumn):
-            cols[i] = take(c, PrimitiveColumn(positions, dt.int64))
-        elif isinstance(c, NullColumn):
+        if isinstance(c, NullColumn):
             cols[i] = NullColumn(pred.count, c.device)
+        elif cols[i] is None:
+            cols[i] = take(c, PrimitiveColumn(positions, dt.int64))
     return cols
 
 

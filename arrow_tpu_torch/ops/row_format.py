@@ -47,9 +47,9 @@ into +0.0 (the reference sorts them as ties), so a float column is not
 decoded from its keys: ops/sort.py gathers it and writes the canonical
 NaN, as the reference's decode does.
 
-REE, decimal and nested sort and group keys raise
-ArrowNotImplementedError: those layouts join with ROADMAP A7.3, the byte
-rows of `RowConverter` with ROADMAP A7.4 and A8.
+REE, decimal, interval[month_day_nano] and nested sort and group keys
+raise ArrowNotImplementedError: they join with ROADMAP A7.4, the byte
+rows of `RowConverter` with A7.4 and A8.
 """
 
 from __future__ import annotations
@@ -142,7 +142,7 @@ def _value_ranks(values: Column) -> Tuple[np.ndarray, np.ndarray]:
 
 def _not_yet(what: str) -> ArrowNotImplementedError:
     return ArrowNotImplementedError(
-        f"{what} as a sort or group key joins with ROADMAP A7.3")
+        f"{what} as a sort or group key joins with ROADMAP A7.4")
 
 
 def key_kind(c: Column) -> str:
@@ -150,7 +150,7 @@ def key_kind(c: Column) -> str:
     unsigned) or 'int' (row_format.py:375-400)."""
     if isinstance(c, (DictionaryColumn, StringColumn)):
         return "dict"
-    if isinstance(c, PrimitiveColumn):
+    if isinstance(c, PrimitiveColumn) and not c.dtype.is_decimal:
         d = c.dtype
         if d.is_floating:
             return "float"

@@ -1,7 +1,6 @@
-"""zip, nullif and shift (counterpart of arrow_tpu/ops/select_misc.py:
-zip_, _zip_generic, nullif and shift, select_misc.py:17-110;
-arrow-select/src/{zip.rs,nullif.rs,window.rs}), over primitive,
-dictionary, string and null columns.
+"""zip, nullif, shift and union_extract (counterpart of
+arrow_tpu/ops/select_misc.py; arrow-select/src/{zip.rs,nullif.rs,
+window.rs,union_extract.rs}).
 
   - zip_: a null mask slot takes the falsy side (zip.rs; pyarrow's
     if_else differs).  Primitive operands and scalars select in one
@@ -11,7 +10,9 @@ dictionary, string and null columns.
     the slot.
   - shift: a primitive column rolls in one pass; other layouts concat a
     null pad and a slice, as the reference does.
-union_extract waits for core/nested.py (ROADMAP A7.3).
+  - union_extract: one child as a column, null where the row's type id
+    is another; a sparse union masks the child, a dense one takes it by
+    the offsets.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..core.column import Column, PrimitiveColumn
 from ..core.datum import Scalar, as_datum
 from ..errors import ArrowInvalid, ArrowTypeError
 
-__all__ = ["zip_", "nullif", "shift"]
+__all__ = ["zip_", "nullif", "shift", "union_extract"]
 
 
 def _keep_true(mask: PrimitiveColumn) -> torch.Tensor:
@@ -113,3 +114,27 @@ def shift(col: Column, offset: int) -> Column:
     return PrimitiveColumn(torch.where(in_range, rolled,
                                        torch.zeros_like(rolled)),
                            col.dtype, validity, _canonical=True)
+
+
+def union_extract(col, field_name: str) -> Column:
+    """One union child as a column; rows of other type ids are null
+    (union_extract.rs, select_misc.py:113-140)."""
+    from ..core.nested import UnionColumn
+    if not isinstance(col, UnionColumn):
+        raise ArrowTypeError("union_extract expects a union column")
+    try:
+        i = [f.name for f in col.fields].index(field_name)
+    except ValueError:
+        raise ArrowInvalid(f"union has no field {field_name!r}")
+    selected = col.type_ids == col.ids[i]
+    child = col.children[i]
+    if len(child) == 0:
+        # a dense union with no rows of this type: all null
+        from .cast import _all_null
+        return _all_null(child.dtype, len(col), col.device)
+    if col.offsets is None:                        # sparse
+        return child.with_validity(vd.union(child.validity, selected))
+    from .take import take
+    safe = torch.where(selected, col.offsets, torch.zeros_like(col.offsets))
+    out = take(child, PrimitiveColumn(safe.to(torch.int64), dt.int64))
+    return out.with_validity(vd.union(out.validity, selected))

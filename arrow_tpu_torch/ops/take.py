@@ -1,37 +1,56 @@
 """take: gather rows by an index column (counterpart of
-arrow_tpu/ops/take.py: take, take_table, _gather_validity, _take_bytes and
-the primitive, dictionary and null arms of _take_impl, take.py:35-269).
+arrow_tpu/ops/take.py:35-214; take.rs:86, per-layout dispatch take.rs:196).
 
-  primitive   -> values gather + validity gather (take.rs:408,434)
+  primitive   -> values gather + validity gather (take.rs:408,434); also
+                 decimal32/64
   dictionary  -> codes gather, dictionary shared (take.rs take_dict)
-  string      -> new offsets from a cumsum of the gathered lengths, a
-                 byte map from a scatter and a cumsum, and a byte gather,
-                 on the device; reading the total byte count is the one
-                 host sync (take.py:178-198)
+  string, list, large list, map
+              -> one range gather (`range_gather`): new offsets from a
+                 cumsum of the gathered lengths, the source index of each
+                 output byte or child row from a scatter of each row's
+                 jump and a cumsum, on the device; reading the total is
+                 the one host sync.  The reference builds that index on
+                 the host with np.repeat (take.py:178-214).
+  struct      -> each child taken by the same indices; the struct's mask
+                 gathered and joined with the indices' (take.py:76-81)
+  fixed-size list / binary, decimal128/256, interval[month_day_nano]
+              -> a gather of each plane (a list's child by idx * k + j)
+  list view   -> offsets and sizes gathered, the child shared
+  union       -> type ids gathered; dense shares its children and gathers
+                 its offsets, sparse takes every child
+  run-end     -> logical rows mapped to runs (a searchsorted), equal
+                 neighbours merged into the output's runs on the device
+                 with one sync for their count (the reference merges on
+                 the host, take.py:151-176); null indices raise
   null        -> a null column of the indices' length
 
 Out-of-range indices clamp, as the reference's unchecked mode does;
 `check_bounds=True` verifies and raises instead (one host sync).  Null
-indices give null outputs; null slots stay canonical zeros.  Unsigned
-indices (uint32 on int32 storage) read as their logical values.  Other
-layouts join with ROADMAP A7.3.
+indices give null outputs and gather row 0 beneath, as in the
+reference.  Unsigned indices (uint32 on int32 storage) read as their
+logical values.  The reference's take of a large_list returns the
+`list` type over int64 offsets (ROADMAP C9); here it stays large_list.
 """
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Tuple, Union
 
 import torch
 
 from .. import dtypes as dt
 from ..config import sync_guard
 from ..core import validity as vd
-from ..core.column import (Column, DictionaryColumn, NullColumn,
-                           PrimitiveColumn, StringColumn)
+from ..core.column import (Column, DictionaryColumn, ListColumn, NullColumn,
+                           PrimitiveColumn, StringColumn, StructColumn)
+from ..core.nested import (DecimalColumn, FixedSizeBinaryColumn,
+                           FixedSizeListColumn, IntervalMDNColumn,
+                           ListViewColumn, MapColumn, RunEndColumn,
+                           UnionColumn)
 from ..core.table import Table
-from ..errors import ArrowInvalid, ArrowNotImplementedError
+from ..errors import ArrowInvalid
 
-__all__ = ["take", "take_table"]
+__all__ = ["take", "take_table", "range_gather"]
 
 
 def _indices(indices: Union[PrimitiveColumn, torch.Tensor]) -> PrimitiveColumn:
@@ -55,53 +74,122 @@ def take(values: Column, indices, *, check_bounds: bool = False) -> Column:
         bad = ((idx < 0) | (idx >= n)) & indices.is_valid_mask()
         if bool(bad.any()):
             raise ArrowInvalid(f"take index out of bounds 0..{n}")
-    idx = idx.clamp(0, max(n - 1, 0))
+    return _take(values, idx.clamp(0, max(n - 1, 0)), indices)
+
+
+def _take(values: Column, idx: torch.Tensor,
+          indices: PrimitiveColumn) -> Column:
+    """values at the clamped int64 rows `idx`; the indices' validity
+    rides in `indices`."""
+    valid = _gather_validity(values, idx, indices)
     if isinstance(values, PrimitiveColumn):
-        return PrimitiveColumn(values.values[idx], values.dtype,
-                               _gather_validity(values, idx, indices))
+        return PrimitiveColumn(values.values[idx], values.dtype, valid)
     if isinstance(values, DictionaryColumn):
-        return DictionaryColumn(values.codes[idx], values.values,
-                                _gather_validity(values, idx, indices),
+        return DictionaryColumn(values.codes[idx], values.values, valid,
                                 ordered=bool(values.dtype.ordered))
     if isinstance(values, StringColumn):
-        return _take_strings(values, idx, indices)
+        offs, src = range_gather(values.offsets, idx, values.data.shape[0])
+        return StringColumn(offs, values.data.index_select(0, src),
+                            values.dtype, valid)
+    if isinstance(values, (ListColumn, MapColumn)):
+        child = values.child if isinstance(values, ListColumn) \
+            else values.entries
+        offs, src = range_gather(values.offsets, idx, len(child))
+        child = _take(child, src.to(torch.int64), _rows(src))
+        if isinstance(values, MapColumn):
+            return MapColumn(offs, child, valid)
+        return ListColumn(offs, child, valid, values._large())
     if isinstance(values, NullColumn):
         return NullColumn(idx.shape[0], idx.device)
-    raise ArrowNotImplementedError(
-        f"take of {type(values).__name__} joins with ROADMAP A7.3")
+    if isinstance(values, StructColumn):
+        kids = tuple(_take(c, idx, indices) for c in values.children)
+        return StructColumn(kids, values.fields, valid)
+    if isinstance(values, ListViewColumn):
+        return ListViewColumn(values.offsets[idx], values.sizes[idx],
+                              values.child, valid, values.dtype)
+    if isinstance(values, FixedSizeBinaryColumn):
+        return FixedSizeBinaryColumn(values.data[idx], valid)
+    if isinstance(values, DecimalColumn):
+        return DecimalColumn(values.limbs[idx], values.dtype, valid)
+    if isinstance(values, IntervalMDNColumn):
+        return IntervalMDNColumn(values.months[idx], values.days[idx],
+                                 values.nanos[idx], valid)
+    if isinstance(values, FixedSizeListColumn):
+        # the child rows of the UNclamped index, then clamped to the
+        # child, as the reference's clipping gather does (take.py:120-127)
+        k = values.list_size
+        raw = dt.widen(indices.values, indices.dtype)
+        rows = (raw[:, None] * k + torch.arange(k, device=idx.device)
+                ).reshape(-1).clamp(0, max(len(values.child) - 1, 0))
+        return FixedSizeListColumn(_take(values.child, rows, _rows(rows)), k,
+                                   valid)
+    if isinstance(values, UnionColumn):
+        tids = values.type_ids[idx]
+        if values.offsets is None:
+            return UnionColumn(tids, None, [_take(c, idx, indices)
+                                            for c in values.children],
+                               values.fields, values.ids)
+        return UnionColumn(tids, values.offsets[idx], values.children,
+                           values.fields, values.ids)
+    if isinstance(values, RunEndColumn):
+        return _take_run(values, idx, indices)
+    raise ArrowInvalid(f"take of {type(values).__name__}")
+
+
+def _rows(idx: torch.Tensor) -> PrimitiveColumn:
+    """The row indices of a child's gather: no nulls."""
+    return PrimitiveColumn(idx, dt.from_numpy_dtype(
+        dt.torch_dtype_name(idx.dtype)))
 
 
 def _gather_validity(values: Column, idx: torch.Tensor,
                      indices: PrimitiveColumn) -> vd.Mask:
     """out valid = indices valid AND values[idx] valid (take.rs take_bits)."""
-    out = None if values.validity is None else values.validity[idx]
-    return vd.union(out, indices.validity)
+    own = values.validity
+    return vd.union(None if own is None else own[idx], indices.validity)
 
 
-def _take_strings(values: StringColumn, idx: torch.Tensor,
-                  indices: PrimitiveColumn) -> StringColumn:
-    """Variable-width gather on the device (_take_bytes,
-    take.py:178-198).  Each output byte's source index grows by one
+def range_gather(offsets: torch.Tensor, idx: torch.Tensor, limit: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows `idx` of an offsets layout (a string's bytes, a list's or
+    a map's child rows) as (new offsets in `offsets`' dtype, the source
+    position of each output element).  A source position grows by one
     along a row and jumps to the row's start where the row begins (the
     jumps of empty rows add up to the next row's), so a scatter of the
-    jumps and a cumsum give the byte map."""
-    offs = values.offsets
-    starts = offs.index_select(0, idx).to(torch.int64)
-    ends = offs.index_select(0, idx + 1).to(torch.int64)
+    jumps and a cumsum give the map; reading its length is the one host
+    sync.  Positions are int32 while the output and the source (`limit`
+    elements) fit in it, else int64."""
+    starts = offsets.index_select(0, idx).to(torch.int64)
+    ends = offsets.index_select(0, idx + 1).to(torch.int64)
     new_offs = torch.zeros(idx.shape[0] + 1, dtype=torch.int64,
                            device=idx.device)
     torch.cumsum(ends - starts, 0, out=new_offs[1:])
     total = int(new_offs[-1])              # the one host sync
-    # int32 maps while the bytes fit: half the traffic
-    ix = torch.int32 if max(total, values.data.shape[0]) < 2 ** 31 \
-        else torch.int64
+    ix = torch.int32 if max(total, limit) < 2 ** 31 else torch.int64
     prev_end = torch.cat([ends.new_ones(1), ends[:-1]])
     step = torch.ones(total + 1, dtype=ix, device=idx.device)
     step.index_add_(0, new_offs[:-1], (starts - prev_end).to(ix))
-    src = torch.cumsum(step[:total], 0, dtype=ix)
-    return StringColumn(new_offs.to(offs.dtype),
-                        values.data.index_select(0, src), values.dtype,
-                        _gather_validity(values, idx, indices))
+    return new_offs.to(offsets.dtype), torch.cumsum(step[:total], 0, dtype=ix)
+
+
+def _take_run(values: RunEndColumn, idx: torch.Tensor,
+              indices: PrimitiveColumn) -> RunEndColumn:
+    """take.rs take_run: each row's run, then equal neighbours merged
+    into the output's runs, on the device; reading the run count is the
+    one host sync (the reference merges on the host, take.py:151-176)."""
+    if indices.validity is not None:
+        raise ArrowInvalid("take on run-end arrays with null indices is "
+                           "not supported; mask first")
+    phys = values.row_to_run(idx)
+    n = phys.shape[0]
+    start = torch.ones(n, dtype=torch.bool, device=idx.device)
+    start[1:] = phys[1:] != phys[:-1]
+    starts = start.nonzero().squeeze(1)              # the one host sync
+    run_ends = torch.cat([starts[1:], starts.new_full((1,), n)])[:n]
+    rows = phys[starts].to(torch.int64)
+    vals = _take(values.values, rows.clamp(0, max(values.num_runs - 1, 0)),
+                 _rows(rows))
+    return RunEndColumn(run_ends.to(values.run_ends.dtype), vals, n)
 
 
 def take_table(table: Table, indices, *, check_bounds: bool = False) -> Table:

@@ -124,17 +124,39 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      word of (k // 2) % 1000, the strings equal to the closed form;
      CUDA-event medians of each call, K1 at both filter sites and K2 at
      the group-by against their plain versions
+ 26. TPC-H SF10 lineitem's dates (spec 4.2.3), 60M rows made on the
+     card from splitmix: add_interval of the ship delay (month_day_nano
+     days) equal to l_shipdate; Q1's cutoff (1998-12-01 minus 90 days as
+     day_time, 1998-09-02) and filter_table of the dates table by
+     lt_eq, one K1 launch, equal to a[keep]; every date part of
+     l_shipdate, four of a timestamp[us, America/New_York] (a fixed
+     offset where the card's machine has no tzdata) and four of receipt
+     - ship as a duration; timestamp - timestamp and timestamp +
+     duration against closed forms; one year_month month later (the
+     end-of-month clamp); group_by year, quarter (K2 must launch) equal
+     to bincount / index_add_ over datetime's calendar
+ 27. config 2's 10M rows with a column of every layout (List<Int64>,
+     LargeList<Utf8>, Struct{Int32, Dictionary<Utf8>}, FixedSizeList,
+     FixedSizeBinary(16), Decimal128(15, 2), IntervalMDN, a sparse
+     union, RunEnd<Int32, Int64>): filter_table at the WHERE and at
+     i32 > 0 (one K1 launch each), take_table by a permutation, concat
+     of four slices equal to the whole, run_end_encode / decode round
+     trips, union_extract, and decimal sum_, min_, max_, add, mul and lt
+     at 1M rows; CUDA-event medians of each call, K1 and K2 at the new
+     sites against their plain versions.  The calls of phases 26-27 are
+     held to the same calls on CPU copies (all rows, bit for bit) after
+     every kernel site is measured.
 
 `--profile` also traces the dictionary and config-4 group-bys, the
 config-5 joins on both plans, one streamed chunk, config 2 (eager and
-fused), config 3 (lexsort, sort_table), phase 24's streamed run and
-phase 25's decode, encode, filters and join with torch.profiler and
-prints, for each, the device time per kernel, the host wall time and
-the card's idle share.
+fused), config 3 (lexsort, sort_table), phase 24's streamed run,
+phase 25's decode, encode, filters and join and every call of phases
+26-27 with torch.profiler and prints, for each, the device time per
+kernel, the host wall time and the card's idle share.
 
 Times: `ms` is the median CUDA-event time of the wrapper's call (host
 work included), `kernel_ms` the kernel's device time per call from
-torch.profiler, `plain_ms` / `library_ms` the plain version's and the
+torch.profiler (null when no trace held every launch), `plain_ms` / `library_ms` the plain version's and the
 PyTorch call's; `bound_ms` is the bytes the call must move (each input
 read once, each output written once) over 3.35 TB/s, computed from this
 run's inputs.  `launches` is the kernel's count over the main-path run
@@ -145,7 +167,7 @@ the join call that holds the site for the join entries (the inner
 join; the semi and anti joins; the merge-plan join; the colliding
 two-column join), the filter_table call of config 2's WHERE, the
 rank and partition calls of step 23, the first streamed run of step 24,
-and the group_by and filter_table calls of step 25.
+the group_by and filter_table calls of steps 25-27.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object of per-kernel results; the last line is the JSON result
@@ -209,9 +231,8 @@ def time_ms(fn: Callable, reps: int = 5) -> float:
 
 
 def _profile(fn: Callable, reps: int):
+    """torch.profiler's trace of `reps` calls of `fn`."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -219,18 +240,34 @@ def _profile(fn: Callable, reps: int):
     return prof
 
 
-def kernel_ms(fn: Callable, name: str, reps: int = 3) -> float:
+def kernel_ms(fn: Callable, name: str, wrapper, reps: int = 3
+              ) -> Optional[float]:
     """Device time per call of the kernels whose name holds `name`, from
-    torch.profiler over `reps` calls after a warm-up."""
-    prof = _profile(fn, reps)
-    total = sum(e.device_time_total for e in prof.key_averages()
-                if name in e.key)
-    return total / 1e3 / reps
+    torch.profiler over `reps` calls after a warm-up.  The profiler now
+    and then returns a trace holding only some of the kernels launched in
+    it, or none: a trace that holds fewer such kernels than `wrapper`
+    counted launches is taken again, at most three times; None when none
+    was complete."""
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        before = wrapper.launches
+        events = [e for e in _profile(fn, reps).key_averages()
+                  if name in e.key]
+        launched = wrapper.launches - before
+        traced = sum(e.count for e in events)
+        if traced == launched > 0:
+            return sum(e.device_time_total for e in events) / 1e3 / reps
+        print(f"kernel_ms: trace {attempt} of {name} holds {traced} of "
+              f"{launched} launches", flush=True)
+    return None
 
 
 def profile_call(what: str, fn: Callable) -> None:
     """Device time by kernel per call (torch.profiler over 3 calls), the
     host wall median of 5 synced calls and the idle share between."""
+    fn()
+    torch.cuda.synchronize()
     prof = _profile(fn, 3)
     per = sorted(((e.device_time_total / 3e3, e.key)
                   for e in prof.key_averages() if e.device_time_total > 0),
@@ -398,18 +435,24 @@ class Site:
     bytes: int
 
     def measure(self) -> dict:
-        name = "compact_kernel" if self.kernel == "compact" \
-            else "groupagg_kernel"
+        from arrow_tpu_torch.kernels import compact as kc, groupagg as kg
+        name, wrapper = ("compact_kernel", kc.compact) \
+            if self.kernel == "compact" \
+            else ("groupagg_kernel", kg.grouped_aggregate)
         out = {"name": self.kernel, "call_site": self.call_site,
                "ms": time_ms(self.run),
-               "kernel_ms": kernel_ms(self.run, name),
+               "kernel_ms": kernel_ms(self.run, name, wrapper),
                "plain_ms": time_ms(self.plain),
                "library_ms": None if self.library is None
                else time_ms(self.library),
                "bound_ms": bound_ms(self.bytes), "bound_by": "bytes",
                "bytes": self.bytes}
-        out["share"] = out["bound_ms"] / out["kernel_ms"] \
-            if out["kernel_ms"] else None
+        out["share"] = None if out["kernel_ms"] is None \
+            else out["bound_ms"] / out["kernel_ms"]
+        if out["share"] is not None and out["share"] > 1.05:
+            raise AssertionError(
+                f"{self.kernel} at {self.call_site}: {out['kernel_ms']} ms "
+                f"of kernel for a {out['bound_ms']} ms bound")
         return out
 
 
@@ -731,8 +774,10 @@ def _read_counts(what: str, must: Optional[str]) -> dict:
 def _entry(site, launches: int, err: float) -> dict:
     """The site's measurements as one entry of the kernels line."""
     m = site.measure()
+    kernel = "not measured" if m["kernel_ms"] is None \
+        else f"{m['kernel_ms']:.4f} ms"
     print(f"{site.kernel} at {site.call_site}: {m['ms']:.4f} ms "
-          f"(kernel {m['kernel_ms']:.4f} ms), plain {m['plain_ms']:.4f} ms"
+          f"(kernel {kernel}), plain {m['plain_ms']:.4f} ms"
           f", library {m['library_ms']}, bound {m['bound_ms']:.4f} ms",
           flush=True)
     return {**m, "launches": launches, "max_abs_err": err}
@@ -1631,17 +1676,20 @@ def _host_gather(offs: np.ndarray, data: np.ndarray, keep: np.ndarray):
 
 
 def _cpu(x):
-    """A column of the port with its tensors, a dictionary's values
-    included, on the CPU."""
+    """A column or table of the port with its tensors, every
+    dictionary's values included, on the CPU."""
     from torch.utils import _pytree as pytree
     from arrow_tpu_torch.core.column import DictionaryColumn
-    if isinstance(x, DictionaryColumn):
-        return DictionaryColumn(x.codes.cpu(), _cpu(x.values),
-                                None if x.validity is None
-                                else x.validity.cpu(), _canonical=True,
-                                ordered=bool(x.dtype.ordered))
-    return pytree.tree_map(lambda t: t.cpu() if isinstance(t, torch.Tensor)
-                           else t, x)
+
+    def move(t):
+        if isinstance(t, DictionaryColumn):
+            return DictionaryColumn(t.codes.cpu(), _cpu(t.values),
+                                    None if t.validity is None
+                                    else t.validity.cpu(), _canonical=True,
+                                    ordered=bool(t.dtype.ordered))
+        return t.cpu() if isinstance(t, torch.Tensor) else t
+    return pytree.tree_map(move, x, is_leaf=lambda t: isinstance(
+        t, DictionaryColumn))
 
 
 def _outcome(fn):
@@ -1900,12 +1948,435 @@ def run_phase25(dev, profile: bool) -> list:
           + json.dumps(times), flush=True)
     return entries
 
+# ---- phase 26: TPC-H lineitem's dates at SF10 ------------------------------
+
+P26_ROWS = 60_000_000              # SF10 lineitem, 59,986,052 rows rounded
+P26_ZONE = "America/New_York"
+P26_PARTS = ("year", "month", "day", "quarter", "doy", "dow", "dow_sunday0",
+             "week", "week_iso", "year_iso", "hour", "minute", "second",
+             "millisecond", "microsecond", "nanosecond")
+_EPOCH = __import__("datetime").date(1970, 1, 1)
+
+
+def _days(y: int, m: int, d: int) -> int:
+    import datetime
+    return (datetime.date(y, m, d) - _EPOCH).days
+
+
+def tpch_dates(n: int, dev):
+    """TPC-H's lineitem dates (spec 4.2.3) from splitmix on the card:
+    o_orderdate uniform over [1992-01-01, 1998-12-31 - 151 days],
+    l_shipdate = o_orderdate + U[1, 121], l_commitdate = o_orderdate +
+    U[30, 90], l_receiptdate = l_shipdate + U[1, 30], l_quantity U[1, 50];
+    and a second of the day per row.  Returns int32 day numbers (int64
+    for the rest) and the ship delay."""
+    lo, hi = _days(1992, 1, 1), _days(1998, 12, 31) - 151
+    cols = {}
+    order = lo + _umod(splitmix(n, 0, dev), hi - lo + 1)
+    delay = 1 + _umod(splitmix(n, n, dev), 121)
+    cols["o_orderdate"] = order.to(torch.int32)
+    cols["l_shipdate"] = (order + delay).to(torch.int32)
+    cols["l_commitdate"] = (order + 30 + _umod(splitmix(n, 2 * n, dev), 61)
+                            ).to(torch.int32)
+    cols["l_receiptdate"] = (cols["l_shipdate"] + 1 + _umod(
+        splitmix(n, 3 * n, dev), 30)).to(torch.int32)
+    cols["l_quantity"] = 1 + _umod(splitmix(n, 4 * n, dev), 50)
+    second = _umod(splitmix(n, 5 * n, dev), 86_400)
+    return cols, delay.to(torch.int32), second
+
+
+def _year_quarter_table(dev):
+    """(year, quarter) of every day of 1992-2000 by Python's datetime:
+    no code of the port."""
+    import datetime
+    base = _days(1992, 1, 1)
+    days = [_EPOCH + datetime.timedelta(days=base + i) for i in range(3300)]
+    return base, torch.tensor([[d.year, (d.month - 1) // 3 + 1]
+                               for d in days], device=dev)
+
+
+def _same(got, want, what: str) -> None:
+    """Equal to the CPU route or to another result on the card, bit for
+    bit."""
+    _same_outcome(got, _cpu(want), what)
+
+
+def run_phase26(dev, profile: bool) -> list:
+    """Phase 26: TPC-H SF10 lineitem's dates through ops/temporal.py, the
+    temporal arms of add and sub, a K1 filter_table and a K2 group_by.
+    Returns the kernel entries and the calls `check_against_cpu` holds to
+    the CPU route once every kernel site is measured."""
+    import os
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import PrimitiveColumn
+    from arrow_tpu_torch.core.datum import Scalar
+    from arrow_tpu_torch.core.nested import IntervalMDNColumn
+    from arrow_tpu_torch.core.table import Table
+    from arrow_tpu_torch.ops import numeric as pn, temporal as pt
+    from arrow_tpu_torch.ops.cast import cast
+    from arrow_tpu_torch.ops.cmp import lt_eq
+    from arrow_tpu_torch.ops.filter import filter_table
+    from arrow_tpu_torch.ops.groupby import AggSpec, group_by
+    n = P26_ROWS
+    what = f"phase 26, TPC-H SF10 lineitem dates, {n:,} rows"
+    zone_file = os.path.join("/usr/share/zoneinfo", *P26_ZONE.split("/"))
+    zone = P26_ZONE if os.path.exists(zone_file) else "-05:00"
+    print(f"{what}: tzdata probe: {zone_file} "
+          f"{'present' if zone == P26_ZONE else 'missing'}; zone {zone}",
+          flush=True)
+    raw, delay, second = tpch_dates(n, dev)
+    date = {k: PrimitiveColumn(v, dt.date32) for k, v in raw.items()
+            if k != "l_quantity"}
+    qty = PrimitiveColumn(raw["l_quantity"], dt.int64)
+    ship = date["l_shipdate"]
+    times, entries, cpu_calls = {}, [], []
+
+    def timed(name, fn):
+        times[name] = time_ms(fn)
+        if profile:
+            profile_call(f"{what} {name}", fn)
+
+    # add_interval of the ship delay as interval[month_day_nano] days
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    iv = IntervalMDNColumn(zeros, delay, zeros.to(torch.int64))
+    got = pt.add_interval(date["o_orderdate"], iv)
+    if not torch.equal(got.values, ship.values) or got.validity is not None:
+        raise AssertionError(f"{what}: add_interval(o_orderdate, delay) is "
+                             f"not l_shipdate")
+    timed("add_interval (month_day_nano days)",
+          lambda: pt.add_interval(date["o_orderdate"], iv))
+    del got, iv
+
+    # Q1's cutoff and WHERE l_shipdate <= cutoff through K1
+    start = PrimitiveColumn(torch.tensor([_days(1998, 12, 1)],
+                                         dtype=torch.int32, device=dev),
+                            dt.date32)
+    ninety = PrimitiveColumn(torch.tensor([90 << 32], device=dev),
+                             dt.interval("day_time"))
+    cutoff = int(pt.sub_interval(start, ninety).values[0])
+    if cutoff != _days(1998, 9, 2):
+        raise AssertionError(f"{what}: 1998-12-01 - 90 days = {cutoff}")
+    table = Table([*date.values(), qty], dt.Schema(tuple(
+        dt.Field(k, dt.date32 if k != "l_quantity" else dt.int64, False)
+        for k in raw)))
+    pred = lt_eq(ship, Scalar(cutoff, dt.date32))
+    _reset_counts()
+    with watch("compact", "filter") as calls:
+        out = filter_table(table, pred)
+    launches = _read_counts(f"{what} Q1 filter_table", "compact")
+    keep = ship.values <= cutoff
+    for name, col in zip(table.column_names, table.columns):
+        _same_bits(out.column(name).values, col.values[keep],
+                   f"{what} Q1 filter_table {name}")
+    share = float(keep.sum()) / n
+    print(f"{what}: 1998-12-01 - 90 days (day_time) = 1998-09-02; Q1's "
+          f"WHERE l_shipdate <= 1998-09-02 keeps {int(keep.sum()):,} rows "
+          f"({share:.4%}), one K1 launch, equal to a[keep]", flush=True)
+    del out
+    timed("Q1 filter_table", lambda: filter_table(table, pred))
+    (k_keep, arrays), kwargs = calls[0][0][:2], calls[0][1]
+    del calls
+    site = _compact_site(f"phase 26 Q1 filter_table, {n:,} rows, "
+                         f"{share:.2%} kept", k_keep, tuple(arrays),
+                         kwargs.get("out_cap"),
+                         lambda: tuple(a[k_keep] for a in arrays),
+                         kwargs.get("positions"))
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    entries.append(_entry(site, launches["compact"], err))
+    del site, k_keep, arrays, keep, pred
+
+    # group_by year, quarter of l_shipdate: the small-domain plan on K2
+    gtable = Table([pt.year(ship), pt.quarter(ship), qty], dt.Schema((
+        dt.Field("y", dt.int32, False), dt.Field("q", dt.int32, False),
+        dt.Field("l_quantity", dt.int64, False))))
+    aggs = [AggSpec("l_quantity", "count_all"), AggSpec("l_quantity", "sum")]
+    _reset_counts()
+    with watch("grouped_aggregate", "groupby") as k2_calls:
+        out = group_by(gtable, ["y", "q"], aggs)
+    gb_launches = _read_counts(f"{what} group_by y, q", "grouped_aggregate")
+    base, yq = _year_quarter_table(dev)
+    row = yq[ship.values.to(torch.int64) - base]
+    key = (row[:, 0] - 1992) * 4 + row[:, 1] - 1
+    counts = torch.bincount(key, minlength=36)
+    sums = torch.zeros(36, dtype=torch.int64, device=dev).index_add_(
+        0, key, qty.values)
+    present = counts.nonzero().squeeze(1)
+    got = [out.column(c).values for c in ("y", "q", "l_quantity_count_all",
+                                          "l_quantity_sum")]
+    want = [(present // 4 + 1992).to(torch.int32),
+            (present % 4 + 1).to(torch.int32), counts[present],
+            sums[present]]
+    if any(g.shape != w.shape or not torch.equal(g, w)
+           for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: group_by y, q differs from the "
+                             f"bincount of the generator's years and "
+                             f"quarters")
+    print(f"{what}: group_by year, quarter: {out.num_rows} groups, counts "
+          f"and sums equal to bincount / index_add_ over datetime's "
+          f"calendar", flush=True)
+    del out, row, key
+    timed("group_by year, quarter", lambda: group_by(gtable, ["y", "q"],
+                                                     aggs))
+    site = _k2_site(f"phase 26 small-domain plan, year x quarter, {n:,} "
+                    f"rows x {k2_calls[0][0][1]:,} codes", k2_calls[0])
+    del k2_calls, gtable
+    err = check_site(site, same_aggregates, f"K2 at {site.call_site}")
+    entries.append(_entry(site, gb_launches["grouped_aggregate"], err))
+    del site
+
+    # every date part of l_shipdate, and of a zoned timestamp
+    for part in P26_PARTS:
+        cpu_calls.append((f"date_part {part}", pt.date_part, ship, part))
+    ts = PrimitiveColumn(ship.values.to(torch.int64) * 86_400_000_000
+                         + second * 1_000_000, dt.timestamp("us", zone))
+    for part in ("hour", "minute", "day", "dow"):
+        cpu_calls.append((f"date_part {part} (timestamp[us, {zone}])",
+                          pt.date_part, ts, part))
+
+    # receipt - ship as timestamps, its parts, and ship + that duration
+    ship_s = cast(ship, dt.timestamp("s"))
+    receipt_s = cast(date["l_receiptdate"], dt.timestamp("s"))
+    dur = pn.sub(receipt_s, ship_s)
+    want = (date["l_receiptdate"].values - ship.values).to(torch.int64) \
+        * 86_400
+    if dur.dtype != dt.duration("s") or not torch.equal(dur.values, want):
+        raise AssertionError(f"{what}: receipt - ship differs")
+    timed("sub (timestamp - timestamp)", lambda: pn.sub(receipt_s, ship_s))
+    for part in ("day", "hour", "second", "week"):
+        cpu_calls.append((f"date_part {part} (duration[s])", pt.date_part,
+                          dur, part))
+    back = pn.add(ship_s, dur)
+    if back.dtype != receipt_s.dtype or \
+            not torch.equal(back.values, receipt_s.values):
+        raise AssertionError(f"{what}: ship + (receipt - ship) != receipt")
+    timed("add (timestamp + duration)", lambda: pn.add(ship_s, dur))
+    del ship_s, receipt_s, want, back
+
+    # one month later, year_month: the end-of-month clamp
+    month = PrimitiveColumn(torch.ones(n, dtype=torch.int32, device=dev),
+                            dt.interval("year_month"))
+    cpu_calls.append(("add_interval (one month, year_month)",
+                      pt.add_interval, ship, month))
+    for name, fn, *args in cpu_calls:
+        timed(name, lambda: fn(*args))
+    print(f"phase 26 times (CUDA events, median of 5; ms): "
+          + json.dumps(times), flush=True)
+    return entries, [(f"{what}: {name}", fn, args)
+                     for name, fn, *args in cpu_calls]
+
+
+def check_against_cpu(checks) -> None:
+    """Each (what, fn, args) call on the card equal to the same call on
+    CPU copies of its arguments, bit for bit."""
+    for what, fn, args in checks:
+        got = fn(*args)
+        torch.cuda.synchronize()
+        _same(got, fn(*[_cpu(a) for a in args]), f"{what} against the CPU "
+              f"route")
+        del got
+    print(f"{len(checks)} calls of phases 26-27 equal to the CPU route, "
+          f"bit for bit", flush=True)
+
+
+# ---- phase 27: nested, decimal and interval layouts at config 2's size -----
+
+P27_DECIMAL_ROWS = 1_000_000       # host-exact decimal arithmetic
+
+
+def p27_table(dev):
+    """Config 2's 10M rows (rng(1)) with a column of each layout, made on
+    the card from splitmix."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import (DictionaryColumn, ListColumn,
+                                             PrimitiveColumn, StructColumn)
+    from arrow_tpu_torch.core import nested as nd
+    from arrow_tpu_torch.core.table import Table
+    from arrow_tpu_torch.ops.strings import dictionary_decode
+    n = CONFIG2_ROWS
+    host, (i32, ts, dcol) = config2_inputs(n, dev)
+    h = [splitmix(n, k * n, dev) for k in range(8)]
+
+    def offsets(lens, odt):
+        return torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)]).to(odt)
+    lens = _umod(h[0], 8)
+    lst = ListColumn(offsets(lens, torch.int32),
+                     PrimitiveColumn(splitmix(int(lens.sum()), 9 * n, dev),
+                                     dt.int64),
+                     _umod(_lsr(h[0], 8), 10) != 0)
+    wl = _umod(h[1], 4)
+    wn = int(wl.sum())
+    words = DictionaryColumn(_umod(splitmix(wn, 10 * n, dev), 1000).to(
+        torch.int32), dcol.values)
+    llst = ListColumn(offsets(wl, torch.int64), dictionary_decode(words),
+                      large=True)
+    st = StructColumn([i32, dcol], [dt.Field("i32", dt.int32),
+                                    dt.Field("d", dcol.dtype)],
+                      _umod(h[2], 20) != 0)          # 5% null structs
+    fsl = nd.FixedSizeListColumn(PrimitiveColumn(
+        (splitmix(4 * n, 11 * n, dev) >> 40).to(torch.float32) / 1024,
+        dt.float32), 4)
+    fsb = nd.FixedSizeBinaryColumn(torch.stack([h[3], h[4]], 1).contiguous()
+                                   .view(torch.uint8))
+    unscaled = _umod(h[5], 2 * 10 ** 13) - 10 ** 13
+    dec = nd.DecimalColumn(torch.stack([unscaled, unscaled >> 63], 1),
+                           dt.decimal128(15, 2))
+    mdn = nd.IntervalMDNColumn((_umod(h[6], 25) - 12).to(torch.int32),
+                               (_umod(_lsr(h[6], 16), 61) - 30).to(
+                                   torch.int32), h[7] >> 20)
+    uni = nd.UnionColumn((h[7] & 1).to(torch.int8), None, [
+        PrimitiveColumn(h[3] >> 3, dt.int64),
+        PrimitiveColumn((h[4] >> 11).to(torch.float64) / 2 ** 20,
+                        dt.float64)],
+        [dt.Field("i", dt.int64), dt.Field("f", dt.float64)])
+    run_lens = 1 + _umod(splitmix(n // 16, 12 * n, dev), 64)
+    ends = torch.cumsum(run_lens, 0)
+    ends = torch.cat([ends[ends < n], ends.new_full((1,), n)])
+    ree = nd.RunEndColumn(ends.to(torch.int32), PrimitiveColumn(
+        splitmix(ends.shape[0], 13 * n, dev), dt.int64), n)
+    cols = {"i32": i32, "ts": ts, "d": dcol, "list": lst,
+            "large_list": llst, "struct": st, "fsl": fsl, "fsb": fsb,
+            "decimal": dec, "interval": mdn, "union": uni, "run_end": ree}
+    return host, Table(list(cols.values()), dt.Schema(tuple(
+        dt.Field(k, c.dtype) for k, c in cols.items())))
+
+
+def p27_decimal_calls(dec, d64):
+    """The decimal calls, host-exact: (name, call)."""
+    from arrow_tpu_torch.ops import aggregate as pa, cmp as pc
+    from arrow_tpu_torch.ops import numeric as pn
+    return [("sum_", lambda: pa.sum_(dec)), ("min_", lambda: pa.min_(dec)),
+            ("max_", lambda: pa.max_(dec)), ("add", lambda: pn.add(dec, d64)),
+            ("mul", lambda: pn.mul(dec, d64)),
+            ("lt (decimal64(18, 3))", lambda: pc.lt(dec, d64))]
+
+
+def run_phase27(dev, profile: bool) -> list:
+    """Phase 27: filter_table, take_table, concat, run_end_encode /
+    decode, union_extract and decimals over config 2's 10M rows with a
+    column of every layout.  Returns the kernel entries and the calls
+    `check_against_cpu` holds to the CPU route."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import PrimitiveColumn
+    from arrow_tpu_torch.core.datum import Scalar
+    from arrow_tpu_torch.ops.boolean import and_kleene, or_kleene
+    from arrow_tpu_torch.ops.cast import cast
+    from arrow_tpu_torch.ops.cmp import gt, gt_eq
+    from arrow_tpu_torch.ops.concat import concat_tables
+    from arrow_tpu_torch.ops.filter import filter_table
+    from arrow_tpu_torch.ops.ree import run_end_decode, run_end_encode
+    from arrow_tpu_torch.ops.select_misc import union_extract
+    from arrow_tpu_torch.ops.take import take_table
+    n = CONFIG2_ROWS
+    host, table = p27_table(dev)
+    i32_np, valid_np, ts_np, codes_np = host
+    what = f"phase 27, {n:,} rows with a column of every layout"
+    print(f"{what}: {len(table.column('list').child):,} list values, "
+          f"{len(table.column('large_list').child):,} strings in the large "
+          f"list, {table.column('run_end').num_runs:,} runs", flush=True)
+    times, entries, cpu_checks = {}, [], []
+
+    def timed(name, fn):
+        times[name] = time_ms(fn)
+        if profile:
+            profile_call(f"{what} {name}", fn)
+
+    i32, ts, dcol = (table.column(c) for c in ("i32", "ts", "d"))
+    m1, m2, m3 = config2_run(i32, ts, dcol)
+    m4 = gt_eq(cast(i32, dt.int64), Scalar(0, dt.int64))
+    preds = {"WHERE": and_kleene(and_kleene(or_kleene(m1, m4), m2), m3),
+             "i32 > 0": gt(i32, Scalar(0, dt.int32))}
+    keeps = {"WHERE": valid_np & (i32_np >= 0) & (codes_np == 42),
+             "i32 > 0": valid_np & (i32_np > 0)}
+    for name, pred in preds.items():
+        _reset_counts()
+        with watch("compact", "filter") as calls:
+            out = filter_table(table, pred)
+        launches = _read_counts(f"{what} filter_table {name}", "compact")
+        if launches["compact"] != 1:
+            raise AssertionError(f"{what} filter_table {name}: "
+                                 f"{launches['compact']} K1 launches, not 1")
+        kept = int(keeps[name].sum())
+        if out.num_rows != kept:
+            raise AssertionError(f"{what} filter_table {name}: "
+                                 f"{out.num_rows} rows, numpy {kept}")
+        del out
+        timed(f"filter_table {name}", lambda: filter_table(table, pred))
+        print(f"{what}: filter_table {name} keeps {kept:,} rows "
+              f"({keeps[name].mean():.2%}), one K1 launch; "
+              f"{times[f'filter_table {name}']:.4f} ms", flush=True)
+        (keep, arrays), kwargs = calls[0][0][:2], calls[0][1]
+        del calls
+        site = _compact_site(
+            f"phase 27 filter_table of every layout, {n:,} rows, "
+            f"{keeps[name].mean():.2%} kept", keep, tuple(arrays),
+            kwargs.get("out_cap"),
+            lambda keep=keep, arrays=arrays: (
+                tuple(a[keep] for a in arrays), keep.nonzero()),
+            kwargs.get("positions"))
+        err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+        entries.append(_entry(site, launches["compact"], err))
+        del site, keep, arrays
+        cpu_checks.append((f"filter_table {name}", filter_table, table,
+                           pred))
+    del m1, m2, m3, m4
+
+    idx = PrimitiveColumn(torch.argsort(splitmix(n, 14 * n, dev)), dt.int64)
+    timed("take_table (permutation)", lambda: take_table(table, idx))
+    cpu_checks.append(("take_table by a permutation", take_table, table,
+                       idx))
+
+    quarter = n // 4
+    parts = [table.slice(i * quarter, quarter) for i in range(4)]
+    whole = concat_tables(parts)
+    for name, a, b in zip(table.column_names, whole.columns, table.columns):
+        if name == "run_end":      # runs meeting at a seam stay apart
+            a, b = run_end_decode(a), run_end_decode(b)
+        _same(a, b, f"{what}: concat of four slices, {name}")
+    del whole
+    timed("concat_tables (four slices)", lambda: concat_tables(parts))
+    del parts
+    print(f"{what}: concat of four {quarter:,}-row slices equal to the "
+          f"whole", flush=True)
+
+    ree = table.column("run_end")
+    flat = run_end_decode(ree)
+    again = run_end_encode(flat)
+    _same(again, ree, f"{what}: run_end_encode(run_end_decode(x)) = x")
+    _same(run_end_decode(again), flat, f"{what}: decode(encode(y)) = y")
+    timed("run_end_decode", lambda: run_end_decode(ree))
+    timed("run_end_encode", lambda: run_end_encode(flat))
+    del flat, again
+    cpu_checks.append(("run_end_decode", run_end_decode, ree))
+    uni = table.column("union")
+    for f in ("i", "f"):
+        timed(f"union_extract {f}", lambda: union_extract(uni, f))
+        cpu_checks.append((f"union_extract {f}", union_extract, uni, f))
+    print(f"{what}: run_end_encode(run_end_decode(x)) = x and "
+          f"decode(encode(y)) = y on the card", flush=True)
+
+    k = P27_DECIMAL_ROWS
+    dec = table.column("decimal").slice(0, k)
+    d64 = cast(PrimitiveColumn(_umod(splitmix(k, 15 * n, dev),
+                                     2 * 10 ** 12) - 10 ** 12, dt.int64),
+               dt.decimal64(18, 3))
+    cpu_dec = dict(p27_decimal_calls(_cpu(dec), _cpu(d64)))
+    for name, call in p27_decimal_calls(dec, d64):
+        _same(_outcome(call), _outcome(cpu_dec[name]),
+              f"{what}: decimal {name} at {k:,} rows against the CPU route")
+        times[f"decimal {name} ({k:,} rows)"] = time_ms(call, 3)
+    print(f"{what}: decimal sum_, min_, max_, add, mul and lt at {k:,} rows "
+          f"(host-exact) equal to the CPU route", flush=True)
+    print("phase 27 times (CUDA events, median of 5, the decimals of 3; "
+          "ms): " + json.dumps(times), flush=True)
+    return entries, [(f"{what}: {name}", fn, args)
+                     for name, fn, *args in cpu_checks]
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace the group-bys, the joins, configs 2 "
-                         "and 3 and phases 24-25 with torch.profiler")
+                         "and 3 and phases 24-27 with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1992,6 +2463,11 @@ def main(argv=None) -> int:
     entries += run_config3(dev, args.profile)
     entries += run_phase24(dev, args.profile)
     entries += run_phase25(dev, args.profile)
+    e26, checks26 = run_phase26(dev, args.profile)
+    e27, checks27 = run_phase27(dev, args.profile)
+    entries += e26 + e27
+    check_against_cpu(checks26 + checks27)
+    del checks26, checks27
 
     sources = {
         "compact": {"route": "cuda",

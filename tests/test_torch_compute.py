@@ -23,7 +23,7 @@ import arrow_tpu as at
 import arrow_tpu_torch as att
 from arrow_tpu.core.datum import Scalar as RScalar
 from arrow_tpu_torch.core.column import NullColumn
-from arrow_tpu_torch.errors import ArrowInvalid, ArrowNotImplementedError
+from arrow_tpu_torch.errors import ArrowInvalid
 from arrow_tpu_torch.ops import aggregate as pa, bitwise as pb
 from arrow_tpu_torch.ops import numeric as pn, select_misc as psel
 from arrow_tpu_torch.ops.coalesce import BatchCoalescer
@@ -161,11 +161,16 @@ def test_neg_and_neg_wrapping(rng, route, dtype):
 
 @pytest.mark.parametrize("op", ["div", "rem", "neg"])
 def test_temporal_arithmetic_waits_for_ops_temporal(op):
-    """The temporal arms name ROADMAP A7.2 (ops/temporal.py)."""
+    """The temporal arms are ported with ops/temporal.py: timestamp
+    division, remainder and negation raise the reference's type error
+    (tests/test_torch_temporal.py holds the arms that compute)."""
+    ref = at.column(np.arange(3), at.dtypes.timestamp("us"))
     ts = att.from_numpy(np.arange(3), dtype=att.dtypes.timestamp("us"),
                         device="cpu")
-    with pytest.raises(ArrowNotImplementedError, match="A7.2"):
-        pn.neg(ts) if op == "neg" else getattr(pn, op)(ts, ts)
+    same_outcome(lambda: pn.neg(ts) if op == "neg" else getattr(pn, op)(ts,
+                                                                        ts),
+                 lambda: rn.neg(ref) if op == "neg" else getattr(rn, op)(
+                     ref, ref), op)
 
 
 def test_checked_ops_wrap_inside_a_fused_region():

@@ -37,18 +37,39 @@ def cuda_device():
 
 
 def port_dtype(ref_dtype) -> att.dtypes.DataType:
-    """The port's logical type for a reference type."""
-    if ref_dtype.name == "dictionary":
-        return att.dtypes.dictionary(port_dtype(ref_dtype.index_type),
-                                     port_dtype(ref_dtype.value_type),
-                                     ordered=bool(ref_dtype.ordered))
-    if ref_dtype.name == "bool":
-        return att.dtypes.bool_
-    if ref_dtype.name == "timestamp":
-        return att.dtypes.timestamp(ref_dtype.unit, ref_dtype.tz)
-    if ref_dtype.unit is not None:
-        return getattr(att.dtypes, ref_dtype.name)(ref_dtype.unit)
-    return getattr(att.dtypes, ref_dtype.name)
+    """The port's logical type for a reference type, nested ones
+    included."""
+    d, pd = ref_dtype, att.dtypes
+    if d.name == "dictionary":
+        return pd.dictionary(port_dtype(d.index_type),
+                             port_dtype(d.value_type),
+                             ordered=bool(d.ordered))
+    if d.name == "bool":
+        return pd.bool_
+    if d.name == "timestamp":
+        return pd.timestamp(d.unit, d.tz)
+    if d.unit is not None:
+        return getattr(pd, d.name)(d.unit)
+    if d.is_decimal:
+        return getattr(pd, d.name)(d.precision, d.scale)
+    if d.name == "fixed_size_binary":
+        return pd.fixed_size_binary(d.list_size)
+    if d.name == "fixed_size_list":
+        return pd.fixed_size_list(port_dtype(d.value_type), d.list_size)
+    if d.name in ("list", "large_list", "list_view", "large_list_view"):
+        return pd.DataType(d.name, value_type=port_dtype(d.value_type))
+    if d.name == "map":
+        kv = d.value_type
+        return pd.DataType("map", value_type=port_dtype(kv))
+    if d.name == "struct":
+        return pd.struct([port_field(f) for f in d.fields])
+    if d.name == "union":
+        return pd.union([port_field(f) for f in d.fields], d.mode,
+                        d.type_ids)
+    if d.name == "run_end_encoded":
+        return pd.run_end_encoded(port_dtype(d.index_type),
+                                  port_dtype(d.value_type))
+    return getattr(pd, d.name)
 
 
 def column_spec(col, device="cpu") -> dict:
@@ -64,17 +85,60 @@ def column_spec(col, device="cpu") -> dict:
             "dtype": port_dtype(col.dtype)}
 
 
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a)).to(device)
+
+
 def port_column(col, device="cpu"):
     """The port's column holding the same buffers as a reference column,
-    on `device`."""
+    on `device`: every layout, nested ones recursively (a decimal's u64
+    limbs on int64 storage, a union's ids, a run-end column's length)."""
+    from arrow_tpu.core import nested as rn
+    from arrow_tpu_torch.core import column as pc, nested as pn
+    mask = None if col.validity is None else _tensor(col.validity, device)
     if isinstance(col, at.NullColumn):
-        from arrow_tpu_torch.core.column import NullColumn
-        return NullColumn(len(col), device)
+        return pc.NullColumn(len(col), device)
     if isinstance(col, at.StringColumn):
         return att.StringColumn.from_numpy(
             np.asarray(col.offsets), np.asarray(col.data),
             None if col.validity is None else np.asarray(col.validity),
             port_dtype(col.dtype), device=device)
+    if isinstance(col, at.ListColumn):
+        return pc.ListColumn(_tensor(col.offsets, device),
+                             port_column(col.child, device), mask,
+                             large=col.dtype.name == "large_list")
+    if isinstance(col, at.StructColumn):
+        return pc.StructColumn([port_column(c, device) for c in col.children],
+                               [port_field(f) for f in col.fields], mask)
+    if isinstance(col, rn.FixedSizeListColumn):
+        return pn.FixedSizeListColumn(port_column(col.child, device),
+                                      col.list_size, mask)
+    if isinstance(col, rn.FixedSizeBinaryColumn):
+        return pn.FixedSizeBinaryColumn(_tensor(col.data, device), mask)
+    if isinstance(col, rn.MapColumn):
+        return pn.MapColumn(_tensor(col.offsets, device),
+                            port_column(col.entries, device), mask)
+    if isinstance(col, rn.UnionColumn):
+        return pn.UnionColumn(
+            _tensor(col.type_ids, device),
+            None if col.offsets is None else _tensor(col.offsets, device),
+            [port_column(c, device) for c in col.children],
+            [port_field(f) for f in col.fields], col.ids)
+    if isinstance(col, rn.RunEndColumn):
+        return pn.RunEndColumn(_tensor(col.run_ends, device),
+                               port_column(col.values, device), len(col))
+    if isinstance(col, rn.DecimalColumn):
+        return pn.DecimalColumn(
+            _tensor(np.asarray(col.limbs).view(np.int64), device),
+            port_dtype(col.dtype), mask)
+    if isinstance(col, rn.IntervalMDNColumn):
+        return pn.IntervalMDNColumn(*(_tensor(p, device) for p in (
+            col.months, col.days, col.nanos)), mask)
+    if isinstance(col, rn.ListViewColumn):
+        return pn.ListViewColumn(_tensor(col.offsets, device),
+                                 _tensor(col.sizes, device),
+                                 port_column(col.child, device), mask,
+                                 port_dtype(col.dtype))
     return att.from_numpy(device=device, **column_spec(col, device))
 
 
@@ -109,8 +173,10 @@ def port_options(opt):
 
 
 def port_field(f) -> att.dtypes.Field:
-    """The port's Field for a reference Field, nullability included."""
-    return att.dtypes.Field(f.name, port_dtype(f.dtype), nullable=f.nullable)
+    """The port's Field for a reference Field, nullability and metadata
+    included."""
+    return att.dtypes.Field(f.name, port_dtype(f.dtype), nullable=f.nullable,
+                            metadata=tuple(f.metadata))
 
 
 def port_table(table, device="cpu") -> att.Table:
@@ -139,12 +205,17 @@ def assert_same(got, want, what="") -> None:
 
 def assert_columns_equal(got, want, what="", masks=False) -> None:
     """Same dtype (a dictionary's ordered flag included) and values; with
-    `masks`, also the same presence of a validity mask."""
+    `masks`, also the same presence of a validity mask.  A nested,
+    decimal or month_day_nano column also compares its buffers bit for
+    bit (`buffers`)."""
     assert repr(got.dtype) == repr(want.dtype), (what, got.dtype, want.dtype)
     assert bool(got.dtype.ordered) == bool(want.dtype.ordered), \
         (what, "ordered", got.dtype.ordered, want.dtype.ordered)
-    if got.dtype.is_temporal or (got.dtype.is_dictionary
-                                 and got.dtype.value_type.is_temporal):
+    if not (got.dtype.is_primitive or got.dtype.is_string
+            or got.dtype.is_dictionary or got.dtype.is_null):
+        assert_layouts_equal(got, want, what)
+    elif got.dtype.is_temporal or (got.dtype.is_dictionary
+                                   and got.dtype.value_type.is_temporal):
         # the reference lists datetimes
         assert_same(storage_list(got), storage_list(want), what)
     else:
@@ -234,3 +305,118 @@ def rand_column(rng, dtype, n: int, nulls: float = 0.1, small=False):
     """A reference column of rand_values with a share of nulls."""
     valid = None if not nulls else rng.random(n) >= nulls
     return at.column(rand_values(rng, dtype, n, small), validity=valid)
+
+
+# ---- nested layouts -----------------------------------------------------------
+
+def _bits_list(x) -> list:
+    return bits(_host(x)).tolist()
+
+
+def _mask_list(col) -> list:
+    v = col.validity
+    return [True] * len(col) if v is None else _host(v).astype(bool).tolist()
+
+
+def buffers(col) -> dict:
+    """A column of either package as its layout's buffers, recursively:
+    offsets with their dtype, value bits, decimal limbs as u64, union ids
+    and type ids, run ends, and each validity as a list of bools (a
+    missing mask reads all valid)."""
+    kind = type(col).__name__
+    out = {"kind": kind, "len": len(col)}
+    if kind not in ("UnionColumn", "RunEndColumn", "NullColumn"):
+        out["valid"] = _mask_list(col)
+
+    def offsets(x):
+        a = _host(x)
+        return (a.dtype.name, a.astype(np.int64).tolist())
+    if kind == "PrimitiveColumn":
+        out["values"] = _bits_list(col.values)
+    elif kind == "DictionaryColumn":
+        out["codes"] = _bits_list(col.codes)
+        out["dictionary"] = buffers(col.values)
+    elif kind == "StringColumn":
+        out["offsets"] = offsets(col.offsets)
+        out["data"] = _host(col.data).tolist()
+    elif kind in ("ListColumn", "MapColumn"):
+        out["offsets"] = offsets(col.offsets)
+        out["child"] = buffers(col.child if kind == "ListColumn"
+                               else col.entries)
+    elif kind == "StructColumn":
+        out["children"] = [buffers(c) for c in col.children]
+    elif kind == "FixedSizeListColumn":
+        out["child"] = buffers(col.child)
+    elif kind == "FixedSizeBinaryColumn":
+        out["data"] = _host(col.data).tolist()
+    elif kind == "DecimalColumn":
+        out["limbs"] = _host(col.limbs).view(np.uint64).tolist()
+    elif kind == "IntervalMDNColumn":
+        out["planes"] = [_bits_list(p) for p in
+                         (col.months, col.days, col.nanos)]
+    elif kind == "UnionColumn":
+        out["type_ids"] = _host(col.type_ids).tolist()
+        out["offsets"] = None if col.offsets is None else \
+            offsets(col.offsets)
+        out["ids"] = list(col.ids)
+        out["children"] = [buffers(c) for c in col.children]
+    elif kind == "RunEndColumn":
+        out["run_ends"] = offsets(col.run_ends)
+        out["values"] = buffers(col.values)
+    elif kind == "ListViewColumn":
+        out["offsets"] = offsets(col.offsets)
+        out["sizes"] = offsets(col.sizes)
+        out["child"] = buffers(col.child)
+    return out
+
+
+def _has_temporal(d) -> bool:
+    if d.is_temporal:
+        return True
+    kids = [f.dtype for f in d.fields or ()] + \
+        [t for t in (d.value_type,) if t is not None]
+    return any(_has_temporal(k) for k in kids)
+
+
+def assert_layouts_equal(got, want, what="", dtype=None) -> None:
+    """Same type (`dtype`, the port's, where the reference's is known to
+    be wrong), the same buffers bit for bit, and equal to_pylist where no
+    temporal value is inside (the reference lists those as datetimes)."""
+    assert repr(got.dtype) == repr(dtype or want.dtype), \
+        (what, got.dtype, want.dtype)
+    gb, wb = buffers(got), buffers(want)
+    if gb != wb:
+        raise AssertionError(f"{what}: buffers differ\n{_first_diff(gb, wb)}")
+    if not _has_temporal(got.dtype):
+        assert_same(got.to_pylist(), ref_pylist(want), what)
+
+
+def ref_pylist(col) -> list:
+    """A reference column's to_pylist; a decimal's from its unscaled ints
+    (the reference lists decimals through pyarrow, which refuses some
+    precisions and negative scales)."""
+    import decimal
+    d = col.dtype
+    if not d.is_decimal:
+        return col.to_pylist()
+    if hasattr(col, "to_pyints"):
+        ints = col.to_pyints()
+    else:
+        ints = np.asarray(col.values).tolist()
+        if col.validity is not None:
+            ints = [v if ok else None
+                    for v, ok in zip(ints, np.asarray(col.validity))]
+    return [None if v is None else decimal.Decimal(v).scaleb(-d.scale)
+            for v in ints]
+
+
+def _first_diff(a, b, path="") -> str:
+    if isinstance(a, dict) and isinstance(b, dict):
+        for k in a:
+            if a.get(k) != b.get(k):
+                return _first_diff(a.get(k), b.get(k), f"{path}.{k}")
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return _first_diff(x, y, f"{path}[{i}]")
+    return f"{path}: {a!r} != {b!r}"
