@@ -230,14 +230,15 @@ class StringColumn(Column):
                                        device=device)
 
     def to_pylist(self) -> list:
-        """The strings, None at nulls: one copy of the buffers to the
-        host."""
+        """The strings (bytes for a binary type), None at nulls: one copy
+        of the buffers to the host (column.py:244-255)."""
         offs = self.offsets.cpu().numpy().tolist()
         data = self.data.cpu().numpy().tobytes()
         mask = self._mask_host()
+        text = self.dtype.is_string
         return [None if mask is not None and not mask[i]
-                else data[offs[i]:offs[i + 1]].decode()
-                for i in range(len(self))]
+                else data[offs[i]:offs[i + 1]].decode() if text
+                else data[offs[i]:offs[i + 1]] for i in range(len(self))]
 
 
 class DictionaryColumn(Column):

@@ -20,10 +20,15 @@ Plans, tried in this order; each gives the reference's output:
      first-row index at the run starts and emits their positions, and
      reading its count is the plan's one sync; sums and counts by cumsum and
      boundary difference (exact for integers: wrapping addition is
-     associative); min/max by K2 over the group ids (integers, at most
-     G_MAX groups) or by a secondary (group, class, value) sort; output
-     keys gathered at each run's first row.  Past _SORT_AGG_CHUNK rows
-     it runs chunk by chunk through GroupByAccumulator.
+     associative); min/max by K2 over the group ids (integers, and
+     temporal columns by their storage integers, at most G_MAX groups)
+     or by a secondary (group, class, value) sort; output keys gathered
+     at each run's first row, so they keep their layout and type.  Past
+     _SORT_AGG_CHUNK rows it runs chunk by chunk through
+     GroupByAccumulator.  Decimal, run-end and host-ranked keys (lists,
+     structs, maps, fixed-size lists and binaries, month_day_nano) take
+     this plan (groupby.py:152-156): their keys are row_format's limb
+     words, decoded rows and comparator ranks.
 
 The <= G_MAX group-sized results of plans 1-2 are ordered like the sort
 plan's: ascending, nulls first, first key most significant; unoccupied
@@ -164,7 +169,7 @@ def _group_by(table: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
         return _group_by_string_minmax(table, keys, aggs, str_mm, chunk)
     key_cols = [table.column(k) for k in keys]
     for c in key_cols:
-        rf.key_kind(c)                    # raises on layouts still to port
+        rf.key_kind(c)                    # raises on unions and nulls
     if table.num_rows == 0:
         return _empty_group_by(table, keys, aggs)
     if any(isinstance(c, StringColumn) for c in key_cols):
@@ -625,18 +630,24 @@ def _sort_plan(table: Table, key_cols, keys, aggs, key_ranges,
                 else diff_sums(ms.to(torch.int64))
         return valid_counts[name]
 
-    # min/max of integers over at most G_MAX groups: one K2 pass over the
-    # group ids (groupby.py:2528-2557)
+    # min/max of integers, and of dates, times, timestamps and durations
+    # by their storage integers (MinMaxCol's dtype None), over at most
+    # G_MAX groups: one K2 pass over the group ids (groupby.py:2528-2557)
+    def k2_type(c):
+        d = table.column(c).dtype
+        return d if d.is_integer else None
+
     k2_names = [c for c in dict.fromkeys(a.column for a in aggs
                                          if a.op in ("min", "max"))
-                if G <= G_MAX
-                and isinstance(table.column(c), PrimitiveColumn)
-                and table.column(c).dtype.is_integer]
+                if G <= G_MAX and isinstance(table.column(c), PrimitiveColumn)
+                and (table.column(c).dtype.is_integer
+                     or (table.column(c).dtype.is_temporal
+                         and table.column(c).dtype.name != "interval"))]
     k2_mm = {}
     if k2_names:
         gid = (torch.cumsum(run_start, 0, dtype=torch.int32) - 1)
         want = {(a.column, a.op) for a in aggs}
-        mm_cols = [MinMaxCol(*sorted_col(c), table.column(c).dtype,
+        mm_cols = [MinMaxCol(*sorted_col(c), k2_type(c),
                              want_min=(c, "min") in want,
                              want_max=(c, "max") in want) for c in k2_names]
         _, _, mms = grouped_aggregate(gid, G, mm_cols=mm_cols)

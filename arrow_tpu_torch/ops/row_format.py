@@ -1,9 +1,10 @@
 """Order-preserving key encoding for sorts, group-bys and joins
 (counterpart of arrow_tpu/ops/row_format.py: SortOptions, SortField,
-key_kind, key_parts, dictionary_value_ranks, encode_value_key,
-_encode_one_traced, group_has_null_key, decode_sorted_group,
-lexsort_order_traced and lexsort_indices_fused, row_format.py:50-163,
-375-400,483-742).
+key_kind, key_parts, _host_rankable, _pyval_key, _host_rank_parts,
+dictionary_value_ranks, encode_value_key, Rows, RowConverter,
+_decode_key, _encode_one_traced, group_has_null_key,
+decode_sorted_group, lexsort_order_traced and lexsort_indices_fused,
+row_format.py:50-742).
 
 Each key column becomes a group of integer sort keys, most significant
 first (the reference's u8 class keys plus a value key at native width):
@@ -23,6 +24,17 @@ first (the reference's u8 class keys plus a value key at native width):
                its codes are its ranks
   day_time     (sort keys) bit 31 flipped first, so the signed millis
                half orders under the int64 key (row_format.py:393-396)
+  decimal      64-bit limb keys, most significant first: the top limb
+               sign-flipped, the lower limbs as unsigned
+               (row_format.py:590-610); a decimal128 of precision <= 18
+               whose top limbs are all the low limb's sign keys by its
+               low limb alone, one word instead of two
+  run-end      the decoded rows' keys (row_format.py:377-379,489-491)
+  host         list, large list, list view, fixed-size list, fixed-size
+               binary, struct, map and interval[month_day_nano]: dense
+               comparator ranks from one Python key per row on the host
+               (row_format.py:403-480), child nulls placed by nulls_first
+               != descending
 
 A value key holds values in [0, 2**bits); descending order maps v to
 (2**bits - 1) - v (for 64 bits, ~v on the u64 bits), and null rows'
@@ -47,9 +59,11 @@ into +0.0 (the reference sorts them as ties), so a float column is not
 decoded from its keys: ops/sort.py gathers it and writes the canonical
 NaN, as the reference's decode does.
 
-REE, decimal, interval[month_day_nano] and nested sort and group keys
-raise ArrowNotImplementedError: they join with ROADMAP A7.4, the byte
-rows of `RowConverter` with A7.4 and A8.
+Unions and null columns are no sort or group key (the reference's
+"sort key of" error).  `RowConverter` builds the reference's byte rows
+(row_format.py:203-372): per fixed-width column a tag byte and the
+8-byte big-endian `encode_value_key`, on the device; per string column
+arrow-row's variable-length cells through the native host library.
 """
 
 from __future__ import annotations
@@ -61,8 +75,12 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
-from ..core.column import (Column, DictionaryColumn, PrimitiveColumn,
-                           StringColumn)
+from ..config import in_fused_region
+from ..core.column import (Column, DictionaryColumn, ListColumn,
+                           PrimitiveColumn, StringColumn, StructColumn)
+from ..core.nested import (DecimalColumn, FixedSizeBinaryColumn,
+                           FixedSizeListColumn, IntervalMDNColumn,
+                           ListViewColumn, MapColumn, RunEndColumn)
 from ..errors import ArrowNotImplementedError
 
 __all__ = ["SortOptions", "SortField", "SortKey", "KeyRange",
@@ -71,7 +89,7 @@ __all__ = ["SortOptions", "SortField", "SortKey", "KeyRange",
            "sorted_key_values",
            "group_has_null_key", "decode_sorted_group",
            "lexsort_indices_fused", "float_order_key", "int_order_key",
-           "encode_value_key"]
+           "encode_value_key", "host_ranks", "Rows", "RowConverter"]
 
 _SIGN = -(1 << 63)                 # int64 bits of 1 << 63
 _WORD_BITS = 63                    # a packed word stays a non-negative int64
@@ -140,37 +158,109 @@ def _value_ranks(values: Column) -> Tuple[np.ndarray, np.ndarray]:
     raise ArrowNotImplementedError(f"dictionary of {type(values).__name__}")
 
 
-def _not_yet(what: str) -> ArrowNotImplementedError:
-    return ArrowNotImplementedError(
-        f"{what} as a sort or group key joins with ROADMAP A7.4")
+def _host_rankable(c: Column) -> bool:
+    """Keys ranked by a comparator on the host (row_format.py:403-416):
+    list, large list, list view, fixed-size list, fixed-size binary,
+    struct, map and interval[month_day_nano] columns -- the reference's
+    own design for these types (sort.rs:514 child_rank: rank on the CPU,
+    then sort the ranks)."""
+    return isinstance(c, (ListColumn, ListViewColumn, FixedSizeListColumn,
+                          FixedSizeBinaryColumn, IntervalMDNColumn,
+                          StructColumn, MapColumn))
+
+
+def _pyval_key(v, d: dt.DataType, nf: bool):
+    """Total-order key of a possibly-null Python value of type `d`;
+    child nulls order by `nf` (row_format.py:419-424)."""
+    if v is None:
+        return (0,) if nf else (2,)
+    return (1, _pyval_body(v, d, nf))
+
+
+def _pyval_body(v, d: dt.DataType, nf: bool):
+    """row_format.py:427-463: NaN above every float, lists and structs
+    as tuples of their children's keys, month_day_nano as (months, days,
+    nanoseconds), a map as its list of (key, value) entries."""
+    n = d.name
+    if d.is_floating:
+        f = float(v)
+        return (1, 0.0) if f != f else (0, f)
+    if n in ("list", "large_list", "list_view", "large_list_view",
+             "fixed_size_list"):
+        return tuple(_pyval_key(x, d.value_type, nf) for x in v)
+    if n == "struct":                  # a dict by field name
+        return tuple(_pyval_key(v[f.name], f.dtype, nf) for f in d.fields)
+    if n == "interval" and d.unit == "month_day_nano":
+        m, dd, nn = v
+        return (int(m), int(dd), int(nn))
+    if n == "map":                     # (key, value) pairs
+        kf, vf = d.value_type.fields
+        return tuple((_pyval_key(k, kf.dtype, nf),
+                      _pyval_key(x, vf.dtype, nf)) for k, x in v)
+    if d.is_dictionary:
+        return _pyval_body(v, d.value_type, nf)
+    if isinstance(v, list):
+        return tuple(v)
+    return v
+
+
+def host_ranks(c: Column, opt: Optional[SortOptions] = None
+               ) -> Tuple[torch.Tensor, int, Optional[torch.Tensor]]:
+    """(dense comparator rank per row as int64 on the column's device,
+    the number of ranks, validity) of a host-ranked column
+    (_host_rank_parts, row_format.py:466-480): one Python key per row,
+    ranked over the sorted distinct keys.  Child nulls sort first when
+    nulls_first differs from descending (child_rank's inversion,
+    sort.rs:516)."""
+    desc = opt is not None and opt.descending
+    nf = opt is None or opt.nulls_first
+    py = c.to_pylist()
+    keys = [_pyval_key(v, c.dtype, nf != desc) for v in py]
+    rank_of = {k: i for i, k in enumerate(sorted(set(keys)))}
+    ranks = np.fromiter((rank_of[k] for k in keys), np.int64, len(keys))
+    validity = c.validity
+    if validity is None and any(v is None for v in py):
+        validity = torch.from_numpy(np.asarray([v is not None for v in py])
+                                    ).to(c.device)
+    return torch.from_numpy(ranks).to(c.device), len(rank_of), validity
 
 
 def key_kind(c: Column) -> str:
     """'dict' (dictionaries and strings), 'float', 'uint' (bool and
-    unsigned) or 'int' (row_format.py:375-400)."""
+    unsigned), 'int' (signed, temporal, decimal32/64), 'dec2' / 'dec4'
+    (decimal128 / decimal256 limbs) or 'host' (host-ranked layouts); a
+    run-end column is the kind of its decoded values (row_format.py:
+    375-400).  Unions and null columns raise."""
+    if isinstance(c, RunEndColumn):
+        return key_kind(c.values)
     if isinstance(c, (DictionaryColumn, StringColumn)):
         return "dict"
-    if isinstance(c, PrimitiveColumn) and not c.dtype.is_decimal:
+    if isinstance(c, DecimalColumn):
+        return f"dec{c.limbs.shape[1]}"
+    if isinstance(c, PrimitiveColumn):
         d = c.dtype
         if d.is_floating:
             return "float"
         if d.is_boolean or d.is_unsigned_integer:
             return "uint"
         return "int"
-    raise _not_yet(f"{type(c).__name__} ({c.dtype!r})")
+    if _host_rankable(c):
+        return "host"
+    raise ArrowNotImplementedError(f"sort key of {type(c).__name__}")
 
 
 def key_parts(c: Column):
-    """(values, ranks, entry_valid, validity) of one key column
-    (row_format.py:483-519).  A dictionary's ranks are computed on the
-    host and go to the device once (kept on its values, so `fuse` can
-    capture a sort); ranks is None when the dictionary is value-sorted
-    (codes are ranks), entry_valid None when it holds no null value.  A
-    declared ordered flag is not trusted: ranks come from the values, as
-    pyarrow orders them (ROADMAP C7.1); a dictionary from
-    `dictionary_encode` carries its ranks, so its codes are taken as
-    they are without a host pass.  A StringColumn is dictionary-encoded
-    (row_format.py:494-496)."""
+    """(values, ranks, entry_valid, validity) of one dictionary, string or
+    primitive key column (row_format.py:483-519); `_encode_one` keys
+    run-end, decimal128/256 and host-ranked columns itself.  A
+    dictionary's ranks are computed on the host and go to the device once
+    (kept on its values, so `fuse` can capture a sort); ranks is None
+    when the dictionary is value-sorted (codes are ranks), entry_valid
+    None when it holds no null value.  A declared ordered flag is not
+    trusted: ranks come from the values, as pyarrow orders them (ROADMAP
+    C7.1); a dictionary from `dictionary_encode` carries its ranks, so
+    its codes are taken as they are without a host pass.  A StringColumn
+    is dictionary-encoded (row_format.py:494-496)."""
     from .strings import device_table, dictionary_encode
     key_kind(c)
     if isinstance(c, StringColumn):
@@ -266,20 +356,50 @@ def _dict_bits(c: DictionaryColumn) -> int:
     return max(len(c.values) - 1, 0).bit_length()
 
 
+def _decimal_limb_keys(limbs: torch.Tensor, d: dt.DataType
+                       ) -> List[Tuple[torch.Tensor, int]]:
+    """The 64-bit keys of decimal128/256 limbs, most significant first
+    (_encode_one_traced, row_format.py:590-610): the top limb with its
+    sign bit flipped, then the lower limbs as unsigned.  A decimal128 of
+    precision at most 18 whose top limb is only the sign of the low limb
+    (one check on the device, skipped inside `fuse`) keys by its low
+    limb alone, sign-flipped: the same order in one word."""
+    k = limbs.shape[1]
+    lo = limbs[:, 0]
+    if k == 2 and d.precision <= 18 and not in_fused_region() and \
+            torch.equal(limbs[:, 1], lo >> 63):
+        return [(lo ^ _SIGN, 64)]
+    return [(limbs[:, j] ^ _SIGN if j == k - 1 else limbs[:, j], 64)
+            for j in range(k - 1, -1, -1)]
+
+
 def _encode_one(c: Column, rng: Optional[KeyRange],
                 opt: Optional[SortOptions] = None) -> List[SortKey]:
     """One column's key group, most significant first
     (_encode_one_traced, row_format.py:559-634).  `opt` is a sort's
     options; group and join keys pass None (ascending, nulls first, and
-    day_time intervals in their int64 storage order)."""
+    day_time intervals in their int64 storage order).  A run-end column
+    keys by its decoded rows."""
+    if isinstance(c, RunEndColumn):
+        from .ree import run_end_decode
+        c = run_end_decode(c)
     kind = key_kind(c)
     if isinstance(c, StringColumn):
         from .strings import dictionary_encode
         c = dictionary_encode(c)
     descending = opt is not None and opt.descending
     nulls_first = opt is None or opt.nulls_first
-    vals, ranks, entry_valid, validity = key_parts(c)
-    if kind == "float":
+    if kind == "host":
+        vals, count, validity = host_ranks(c, opt)
+        bits = max(count - 1, 0).bit_length()
+        values = [(_flip(vals, bits) if descending else vals, bits)]
+    elif kind.startswith("dec"):
+        values = _decimal_limb_keys(c.limbs, c.dtype)
+        if descending:
+            values = [(~v, b) for v, b in values]
+        validity = c.validity
+    elif kind == "float":
+        vals, _, _, validity = key_parts(c)
         isnan = torch.isnan(vals)
         zero = torch.zeros((), dtype=vals.dtype, device=vals.device)
         clean = torch.where(isnan | (vals == 0), zero, vals)
@@ -289,6 +409,7 @@ def _encode_one(c: Column, rng: Optional[KeyRange],
             vkey, nan_key = _flip(vkey, bits), 1 - nan_key
         values = [(nan_key, 1), (vkey, bits)]
     else:
+        vals, ranks, entry_valid, validity = key_parts(c)
         if kind == "dict":
             codes = vals.to(torch.int64)
             vkey = codes if ranks is None else ranks[codes]
@@ -480,6 +601,161 @@ def decode_sorted_group(kind: str, opt: SortOptions, has_null: bool,
         out = torch.where(validity, out, torch.zeros((), dtype=out_dtype,
                                                      device=out.device))
     return out, validity
+
+
+# ---- byte rows (RowConverter, row_format.py:203-372) -----------------------
+
+@dataclass
+class Rows:
+    """memcmp-comparable rows (arrow-row Rows, lib.rs:1166): an (n,
+    width) uint8 tensor on the columns' device; row i sorts before row j
+    iff its bytes are lexicographically smaller.  `layout` holds each
+    column's (byte offset, width)."""
+    data: torch.Tensor
+    fields: Tuple[SortField, ...]
+    layout: Tuple[Tuple[int, int], ...]
+    dtypes: Tuple[dt.DataType, ...]
+
+    def __len__(self):
+        return int(self.data.shape[0])
+
+    def to_numpy(self) -> np.ndarray:
+        return self.data.cpu().numpy()
+
+    def argsort(self) -> torch.Tensor:
+        """Stable order of the rows by their bytes: uint32 values in an
+        int32 tensor.  Eight bytes make one big-endian word, sign-flipped
+        so signed order is byte order, and the words sort in stable
+        passes from the last to the first."""
+        n, w = self.data.shape
+        if n == 0 or w == 0:
+            return torch.arange(n, dtype=torch.int32, device=self.data.device)
+        pad = -w % 8
+        data = torch.nn.functional.pad(self.data, (0, pad)) if pad \
+            else self.data
+        words = data.reshape(n, -1, 8).flip(-1).contiguous() \
+            .view(torch.int64).reshape(n, -1) ^ _SIGN
+        order, _ = _lex_passes(list(words.t()))
+        return order.to(torch.int32)
+
+
+def _be_bytes(key: torch.Tensor) -> torch.Tensor:
+    """(n, 8) big-endian bytes of u64 keys in int64 storage."""
+    return key.unsqueeze(1).contiguous().view(torch.uint8).reshape(-1, 8) \
+        .flip(-1)
+
+
+def _from_be_bytes(b: torch.Tensor) -> torch.Tensor:
+    """The u64 keys (int64 storage) of (n, 8) big-endian bytes."""
+    return b.flip(-1).contiguous().view(torch.int64).reshape(-1)
+
+
+class RowConverter:
+    """Columns to comparable rows and back (arrow-row RowConverter,
+    lib.rs:413,642,749; row_format.py:227-318).  A fixed-width column is
+    a tag byte (0x01 valid; 0x00 null first, 0xFF null last) and its
+    8-byte big-endian `encode_value_key`, inverted when descending, built
+    on the column's device; a dictionary encodes its value rank, which
+    orders within this converter's columns.  A string column takes
+    arrow-row's variable-length cells (variable.rs:28-100) from the
+    native host library, wide enough for its longest value, and goes to
+    the device.  Other layouts raise, as in the reference."""
+
+    def __init__(self, fields: Sequence[SortField]):
+        self.fields = tuple(fields)
+
+    def convert_columns(self, cols: Sequence[Column]) -> Rows:
+        if len(cols) != len(self.fields):
+            raise ValueError(f"{len(cols)} columns for {len(self.fields)} "
+                             f"fields")
+        parts, layout, offset = [], [], 0
+        for col, f in zip(cols, self.fields):
+            opt = f.options
+            if isinstance(col, StringColumn):
+                from ..utils import hostcodec
+                offs = col.offsets.cpu().numpy().astype(np.int32)
+                n = len(col)
+                max_len = int((offs[1:] - offs[:-1]).max()) if n else 0
+                valid = None if col.validity is None \
+                    else col.validity.cpu().numpy()
+                cells = hostcodec.encode_varlen_rows(
+                    offs, col.data.cpu().numpy(), valid,
+                    max(1, -(-max_len // 32)), opt.descending,
+                    opt.nulls_first)
+                parts.append(torch.from_numpy(cells).to(col.device))
+            else:
+                key, validity = encode_value_key(col)
+                if opt.descending:
+                    key = ~key
+                tag = torch.ones((len(col), 1), dtype=torch.uint8,
+                                 device=key.device)
+                if validity is not None:
+                    tag = torch.where(validity.unsqueeze(1), tag,
+                                      0x00 if opt.nulls_first else 0xFF
+                                      ).to(torch.uint8)
+                    key = torch.where(validity, key, 0)
+                parts.append(torch.cat([tag, _be_bytes(key)], 1))
+            layout.append((offset, parts[-1].shape[1]))
+            offset += parts[-1].shape[1]
+        return Rows(torch.cat(parts, 1), self.fields, tuple(layout),
+                    tuple(c.dtype for c in cols))
+
+    def convert_rows(self, rows: Rows, like: Sequence[Column]
+                     ) -> List[Column]:
+        """The columns back from their rows; `like` gives each field's
+        source column (a dictionary's values, a string's type)."""
+        out: List[Column] = []
+        host = None
+        for (off, w), f, src in zip(rows.layout, self.fields, like):
+            opt = f.options
+            if isinstance(src, StringColumn):
+                from ..utils import hostcodec
+                if host is None:
+                    host = rows.to_numpy()
+                offs, data, valid = hostcodec.decode_varlen_rows(
+                    host, off, (w - 1) // 33, opt.descending,
+                    opt.nulls_first)
+                mask = None if valid.all() else valid.view(bool)
+                out.append(StringColumn.from_numpy(
+                    offs, data, mask, src.dtype, device=rows.data.device))
+                continue
+            key = _from_be_bytes(rows.data[:, off + 1:off + 9])
+            if opt.descending:
+                key = ~key
+            out.append(_decode_key(key, rows.data[:, off] == 0x01, src))
+        return out
+
+
+def _decode_key(key: torch.Tensor, validity: torch.Tensor, src: Column
+                ) -> Column:
+    """One column from its u64 value keys (row_format.py:321-363): the
+    inverse of `encode_value_key`."""
+    mask = None if bool(validity.all()) else validity
+    d = src.dtype
+    if isinstance(src, PrimitiveColumn):
+        if d.is_floating:
+            bits = torch.where(key < 0, key & ~_SIGN, ~key)
+            f = bits.view(torch.float64)
+            return PrimitiveColumn(f.to(d.to_torch()), d, mask)
+        if d.is_boolean:
+            return PrimitiveColumn(key != 0, d, mask)
+        if d.is_unsigned_integer:
+            return PrimitiveColumn(key.to(d.to_torch()), d, mask)
+        if d == dt.interval("day_time"):
+            # undo both flips of encode_value_key; the reference undoes
+            # only the sign bit's (ROADMAP C11)
+            key = key ^ 0x80000000
+        return PrimitiveColumn((key ^ _SIGN).to(d.to_torch()), d, mask)
+    if isinstance(src, DictionaryColumn):
+        ranks, dict_null = dictionary_value_ranks(src.values)
+        valid = np.nonzero(~dict_null)[0]
+        nranks = int(ranks[valid].max()) + 1 if len(valid) else 0
+        rank_to_code = np.zeros(max(nranks, 1), np.int64)
+        rank_to_code[ranks[valid][::-1].astype(np.int64)] = valid[::-1]
+        codes = torch.from_numpy(rank_to_code).to(key.device)[
+            key.clamp(0, max(nranks - 1, 0))]
+        return DictionaryColumn(codes.to(src.codes.dtype), src.values, mask)
+    raise ArrowNotImplementedError(f"decode of {type(src).__name__}")
 
 
 def lexsort_indices_fused(cols: Sequence[Column],

@@ -27,6 +27,14 @@ their input order; floats sort by their total order with -0.0 tied to
                                         count (the reference: np.nonzero
                                         on the host)
 
+Every key kind of ops/row_format.py sorts: decimal limb keys, run-end
+columns by their decoded rows, and lists, structs, maps, fixed-size
+lists and binaries and interval[month_day_nano] by their host comparator
+ranks.  Such a column does not decode from its keys (a decimal's
+one-word key has no top limb, a rank no value): it rides the gather, as
+in the reference (sort.py:95-113).  partition raises on them, as the
+reference's value key does.
+
 The reference's `_PAYLOAD_CROSSOVER` (sort.py:236) is a measurement on
 the TPU and has no counterpart: every non-key column rides a gather.
 """

@@ -1,8 +1,10 @@
 """ctypes bindings to the repository's native host library
 (native/hostcodec.cpp): the string interning, gather and sort the port's
-dictionary encoding runs on the host (counterpart of
-arrow_tpu/utils/native.py: _load, _bind_strings, intern_varlen,
-gather_varlen and argsort_varlen, native.py:28-86,430-598).
+dictionary encoding runs on the host, and the variable-length row cells
+of `RowConverter` (counterpart of arrow_tpu/utils/native.py: _load,
+_bind_strings, intern_varlen, gather_varlen, argsort_varlen,
+encode_varlen_rows and decode_varlen_rows, native.py:28-86,197-290,
+430-598).
 
 The library is `native/libhostcodec.so` at the repository's root, built
 by `make -C native` at first use (and again when hostcodec.cpp is newer
@@ -24,7 +26,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["intern_varlen", "gather_varlen", "argsort_varlen"]
+__all__ = ["intern_varlen", "gather_varlen", "argsort_varlen",
+           "encode_varlen_rows", "decode_varlen_rows"]
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _SO = _NATIVE_DIR / "libhostcodec.so"
@@ -71,6 +74,14 @@ def _library() -> ctypes.CDLL:
         lib.argsort_varlen.argtypes = [i64p, u8p, i64,
                                        ctypes.POINTER(ctypes.c_uint32)]
         lib.argsort_varlen.restype = None
+        i32p, u8 = ctypes.POINTER(ctypes.c_int32), ctypes.c_uint8
+        lib.encode_varlen_rows.argtypes = [i32p, u8p, u8p, i64,
+                                           ctypes.c_int32, u8, u8, u8p]
+        lib.encode_varlen_rows.restype = None
+        lib.decode_varlen_rows.argtypes = [u8p, i64, i64, i64,
+                                           ctypes.c_int32, u8, u8, i32p,
+                                           u8p, u8p]
+        lib.decode_varlen_rows.restype = i64
         _lib = lib
     return _lib
 
@@ -132,3 +143,41 @@ def argsort_varlen(offsets: np.ndarray, data: np.ndarray) -> np.ndarray:
                               _ptr(data, ctypes.c_uint8), n,
                               _ptr(out, ctypes.c_uint32))
     return out[:n]
+
+
+def encode_varlen_rows(offsets: np.ndarray, data: np.ndarray,
+                       valid: Optional[np.ndarray], nblocks: int,
+                       descending: bool, nulls_first: bool) -> np.ndarray:
+    """arrow-row's variable-length cells (variable.rs:28-100) as an
+    (n, 1 + 33 * nblocks) uint8 matrix: 0x02 and 32-byte blocks, each
+    closed by a continuation token (0xFF) or its length + 1; 0x01 for an
+    empty value; a null is 0x00 (nulls first) or 0xFF; descending
+    inverts every byte but a null's."""
+    offsets = np.ascontiguousarray(offsets, np.int32)
+    data = np.ascontiguousarray(data, np.uint8)
+    n = len(offsets) - 1
+    out = np.zeros((n, 1 + 33 * nblocks), np.uint8)
+    v = None if valid is None else np.ascontiguousarray(valid, np.uint8)
+    _library().encode_varlen_rows(
+        _ptr(offsets, ctypes.c_int32), _ptr(data, ctypes.c_uint8),
+        None if v is None else _ptr(v, ctypes.c_uint8), n, nblocks,
+        int(descending), int(nulls_first), _ptr(out, ctypes.c_uint8))
+    return out
+
+
+def decode_varlen_rows(rows: np.ndarray, cell_offset: int, nblocks: int,
+                       descending: bool, nulls_first: bool
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The inverse of `encode_varlen_rows` for the cells at byte
+    `cell_offset` of each row: (int32 offsets, uint8 data, uint8
+    validity)."""
+    rows = np.ascontiguousarray(rows, np.uint8)
+    n, stride = rows.shape
+    offs = np.zeros(n + 1, np.int32)
+    data = np.zeros(max(n * 32 * nblocks, 1), np.uint8)
+    valid = np.zeros(n, np.uint8)
+    total = _library().decode_varlen_rows(
+        _ptr(rows, ctypes.c_uint8), n, stride, cell_offset, nblocks,
+        int(descending), int(nulls_first), _ptr(offs, ctypes.c_int32),
+        _ptr(data, ctypes.c_uint8), _ptr(valid, ctypes.c_uint8))
+    return offs, data[:total], valid

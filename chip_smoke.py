@@ -146,13 +146,37 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      sites against their plain versions.  The calls of phases 26-27 are
      held to the same calls on CPU copies (all rows, bit for bit) after
      every kernel site is measured.
+ 28. TPC-H SF10 lineitem, 59,986,052 rows made on the card by the
+     spec's rules (orders of 1-7 lines under sparse keys, prices from
+     the part keys, l_quantity, l_extendedprice, l_discount and l_tax as
+     Decimal128(15, 2), the flags as Dictionary<Utf8>): group_by
+     (l_discount, l_tax) with count_all, sum and min / max of l_shipdate
+     on the sort plan (K1 and K2 must launch), equal to bincount /
+     index_add_ / scatter_reduce_ over disc * 9 + tax; sort_table by
+     l_extendedprice descending, then l_orderkey, held to an O(n) check;
+     rank of l_extendedprice (K1) equal to a searchsorted rank of the
+     generator's cents; group_by over run_end_encode(l_orderkey), 15M
+     groups (K1), equal to the generator's line counts; at 1M rows (cut:
+     a Python key per row) a struct {l_returnflag, l_linestatus} key
+     through group_by (K1) and sort_table, a List<Int64> key through
+     sort_to_indices against Python's stable sort; at 10M rows on the
+     card the list, struct, run-end (runs kept) and interval casts; at
+     1M rows (cut: host parsing and formatting) the text round trips of
+     l_shipdate, an Int64, a Float64 (bits) and a month_day_nano, utf8 ->
+     timestamp[us] against its closed form, base64; RowConverter over
+     config 2's 10M rows (convert_rows gives back every column,
+     Rows.argsort equals lexsort_to_indices).  Every call is held to the
+     same call on CPU copies; K1 and K2 at the new sites against their
+     plain versions.
 
 `--profile` also traces the dictionary and config-4 group-bys, the
 config-5 joins on both plans, one streamed chunk, config 2 (eager and
 fused), config 3 (lexsort, sort_table), phase 24's streamed run,
 phase 25's decode, encode, filters and join and every call of phases
-26-27 with torch.profiler and prints, for each, the device time per
-kernel, the host wall time and the card's idle share.
+26-28 on the card (not the host-bound ones) with torch.profiler and
+prints, for each, the device time per kernel, the host wall time and
+the card's idle share; a breakdown whose trace drops a K1 or K2 launch
+is taken again, and printed null when no trace is complete.
 
 Times: `ms` is the median CUDA-event time of the wrapper's call (host
 work included), `kernel_ms` the kernel's device time per call from
@@ -167,7 +191,8 @@ the join call that holds the site for the join entries (the inner
 join; the semi and anti joins; the merge-plan join; the colliding
 two-column join), the filter_table call of config 2's WHERE, the
 rank and partition calls of step 23, the first streamed run of step 24,
-the group_by and filter_table calls of steps 25-27.
+the group_by and filter_table calls of steps 25-27, the group_by and
+rank calls of step 28.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object of per-kernel results; the last line is the JSON result
@@ -265,13 +290,29 @@ def kernel_ms(fn: Callable, name: str, wrapper, reps: int = 3
 
 def profile_call(what: str, fn: Callable) -> None:
     """Device time by kernel per call (torch.profiler over 3 calls), the
-    host wall median of 5 synced calls and the idle share between."""
+    host wall median of 5 synced calls and the idle share between.  As
+    in `kernel_ms`, a trace that holds fewer K1 or K2 kernels than their
+    wrappers counted launches is taken again, at most three times; the
+    breakdown is null when none was complete.  Dropped kernels of
+    PyTorch's own go uncounted: no wrapper counts them."""
+    from arrow_tpu_torch.kernels import compact as kc, groupagg as kg
+    wrappers = (("compact_kernel", kc.compact),
+                ("groupagg_kernel", kg.grouped_aggregate))
     fn()
     torch.cuda.synchronize()
-    prof = _profile(fn, 3)
-    per = sorted(((e.device_time_total / 3e3, e.key)
-                  for e in prof.key_averages() if e.device_time_total > 0),
-                 reverse=True)
+    per = None
+    for attempt in range(1, 4):
+        before = [w.launches for _, w in wrappers]
+        events = _profile(fn, 3).key_averages()
+        launched = [w.launches - b for (_, w), b in zip(wrappers, before)]
+        traced = [sum(e.count for e in events if name in e.key)
+                  for name, _ in wrappers]
+        if traced == launched:
+            per = sorted(((e.device_time_total / 3e3, e.key) for e in events
+                          if e.device_time_total > 0), reverse=True)
+            break
+        print(f"profile_call: trace {attempt} of {what} holds {traced} of "
+              f"{launched} K1, K2 launches", flush=True)
     walls = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -280,10 +321,12 @@ def profile_call(what: str, fn: Callable) -> None:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall = statistics.median(walls)
-    device = sum(ms for ms, _ in per)
+    device = None if per is None else sum(ms for ms, _ in per)
     print(f"profile {what}: " + json.dumps(
-        {"wall_ms": wall, "device_ms": device, "idle_share": 1 - device / wall,
-         "top": [[k[:60], round(ms, 4)] for ms, k in per[:12]]}), flush=True)
+        {"wall_ms": wall, "device_ms": device,
+         "idle_share": None if per is None else 1 - device / wall,
+         "top": None if per is None
+         else [[k[:60], round(ms, 4)] for ms, k in per[:12]]}), flush=True)
 
 
 def bound_ms(nbytes: int) -> float:
@@ -2174,7 +2217,7 @@ def check_against_cpu(checks) -> None:
         _same(got, fn(*[_cpu(a) for a in args]), f"{what} against the CPU "
               f"route")
         del got
-    print(f"{len(checks)} calls of phases 26-27 equal to the CPU route, "
+    print(f"{len(checks)} calls of phases 26-28 equal to the CPU route, "
           f"bit for bit", flush=True)
 
 
@@ -2372,11 +2415,528 @@ def run_phase27(dev, profile: bool) -> list:
                      for name, fn, *args in cpu_checks]
 
 
+# ---- phase 28: decimal, run-end and nested keys, casts and rows ------------
+
+P28_ROWS = 59_986_052              # TPC-H SF10 lineitem
+P28_HOST_ROWS = 1_000_000          # host-ranked keys and text casts (cut)
+P28_CURRENT = "1995-06-17"         # TPC-H's CURRENTDATE (spec 4.2.3)
+
+
+def tpch_lineitem(n: int, dev):
+    """lineitem's columns by TPC-H's rules (spec 4.2.3) from splitmix on
+    the card: orders of 1-7 lines under sparse keys (the first 8 of every
+    32), part keys over SF10's 2M parts, l_extendedprice = l_quantity *
+    p_retailprice, discounts 0.00-0.10, taxes 0.00-0.08, the dates and
+    quantities of `tpch_dates`, the flags from the receipt and ship dates
+    against CURRENTDATE.  Returns the table and the generator's integers
+    (cents, codes, line counts)."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import (DictionaryColumn,
+                                             PrimitiveColumn, StringColumn)
+    from arrow_tpu_torch.core.nested import DecimalColumn
+    from arrow_tpu_torch.core.table import Table
+    m = n // 4 + n // 100 + 1_000          # 4 lines an order on average
+    lines = 1 + _umod(splitmix(m, 6 * n, dev), 7)
+    ends = torch.cumsum(lines, 0)
+    orders = int((ends < n).sum()) + 1
+    lines = lines[:orders].clone()
+    lines[-1] -= int(ends[orders - 1]) - n          # the last order cut
+    order = torch.repeat_interleave(torch.arange(orders, device=dev), lines,
+                                    output_size=n)
+    start = torch.cat([lines.new_zeros(1), torch.cumsum(lines, 0)[:-1]])
+    linenumber = (torch.arange(n, device=dev) - start[order] + 1).to(
+        torch.int32)
+    okeys = (torch.arange(orders, device=dev) // 8) * 32 \
+        + torch.arange(orders, device=dev) % 8 + 1
+    raw, _, _ = tpch_dates(n, dev)
+    qty = raw["l_quantity"]
+    part = 1 + _umod(splitmix(n, 7 * n, dev), 2_000_000)
+    retail = 90_000 + (part // 10) % 20_001 + 100 * (part % 1_000)
+    cents = {"l_quantity": qty * 100, "l_extendedprice": qty * retail,
+             "l_discount": _umod(splitmix(n, 8 * n, dev), 11),
+             "l_tax": _umod(splitmix(n, 9 * n, dev), 9)}
+    current = _days(*map(int, P28_CURRENT.split("-")))
+    ret = torch.where(raw["l_receiptdate"] <= current,
+                      2 * _umod(splitmix(n, 10 * n, dev), 2), 1)  # R/A, N
+    status = (raw["l_shipdate"] > current).to(torch.int32)    # F 0, O 1
+    flags = StringColumn.from_pylist(["A", "N", "R"], device=dev)
+    stats = StringColumn.from_pylist(["F", "O"], device=dev)
+    dec = dt.decimal128(15, 2)
+    cols = {"l_orderkey": PrimitiveColumn(okeys[order], dt.int64),
+            "l_linenumber": PrimitiveColumn(linenumber, dt.int32),
+            **{k: DecimalColumn(torch.stack([v, v >> 63], 1), dec)
+               for k, v in cents.items()},
+            "l_returnflag": DictionaryColumn(ret.to(torch.int32), flags),
+            "l_linestatus": DictionaryColumn(status.to(torch.int32), stats),
+            "l_shipdate": PrimitiveColumn(raw["l_shipdate"], dt.date32)}
+    table = Table(list(cols.values()), dt.Schema(tuple(
+        dt.Field(k, c.dtype, False) for k, c in cols.items())))
+    return table, {**cents, "lines": lines, "okeys": okeys,
+                   "ship": raw["l_shipdate"], "linenumber": linenumber,
+                   "flag": ret, "status": status}
+
+
+def _limb_ints(col) -> torch.Tensor:
+    """A decimal128's unscaled values as int64, checked to fit."""
+    lo, hi = col.limbs[:, 0], col.limbs[:, 1]
+    if not torch.equal(hi, lo >> 63):
+        raise AssertionError("a decimal128 key past int64")
+    return lo
+
+
+def _p28_groupby_check(out, g, what: str) -> None:
+    """group_by [l_discount, l_tax] against bincount / index_add_ /
+    scatter_reduce_ over disc * 9 + tax."""
+    code = g["l_discount"] * 9 + g["l_tax"]
+    cnt = torch.bincount(code, minlength=99)
+    present = cnt.nonzero().squeeze(1)
+    sums = torch.zeros(99, dtype=torch.int64, device=code.device).index_add_(
+        0, code, g["linenumber"].to(torch.int64))
+    ship = g["ship"]
+    lo = torch.full((99,), 2 ** 31 - 1, dtype=torch.int32,
+                    device=code.device).scatter_reduce_(0, code, ship, "amin")
+    hi = torch.full((99,), -2 ** 31, dtype=torch.int32,
+                    device=code.device).scatter_reduce_(0, code, ship, "amax")
+    got = [_limb_ints(out.column("l_discount")), _limb_ints(out.column(
+        "l_tax")), out.column("l_linenumber_count_all").values,
+        out.column("l_linenumber_sum").values.to(torch.int64),
+        out.column("l_shipdate_min").values,
+        out.column("l_shipdate_max").values]
+    want = [present // 9, present % 9, cnt[present], sums[present],
+            lo[present], hi[present]]
+    for name, a, b in zip(("discount", "tax", "count", "sum", "min", "max"),
+                          got, want):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs from the "
+                                 f"independent computation")
+
+
+def _p28_sorted_check(idx: torch.Tensor, price: torch.Tensor,
+                      okey: torch.Tensor, what: str) -> None:
+    """O(n): a permutation; prices non-increasing, then order keys
+    non-decreasing, then rows ascending."""
+    n = price.shape[0]
+    if not torch.equal(torch.bincount(idx, minlength=n),
+                       torch.ones(n, dtype=torch.int64, device=idx.device)):
+        raise AssertionError(f"{what}: not a permutation")
+    p, k = price[idx], okey[idx]
+    dp, dk, di = p[1:] - p[:-1], k[1:] - k[:-1], idx[1:] - idx[:-1]
+    bad = (dp > 0) | ((dp == 0) & ((dk < 0) | ((dk == 0) & (di <= 0))))
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: rows out of order")
+
+
+def _p28_list_key(n: int, dev):
+    """A List<Int64> column of 0-3 values in [0, 5), 10% null rows."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import ListColumn, PrimitiveColumn
+    h = splitmix(n, 11 * n, dev)
+    lens = _umod(h, 4)
+    offs = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+    child = _umod(splitmix(int(offs[-1]), 12 * n, dev), 5)
+    return ListColumn(offs.to(torch.int32), PrimitiveColumn(child, dt.int64),
+                      _umod(_lsr(h, 8), 10) != 0)
+
+
+def once_ms(fn):
+    """(fn(), its CUDA-event time in ms): one run, for calls whose host
+    work takes seconds."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def _same_values(got, want, what: str) -> None:
+    """A round trip's column equal to its source: the same validity (a
+    cast back may add an all-true mask) and the same storage bits where
+    valid (a cast writes zeros under nulls)."""
+    planes = lambda c: [c.values] if hasattr(c, "values") else \
+        [c.months, c.days, c.nanos]
+    m = want.is_valid_mask()
+    if got.dtype != want.dtype or not torch.equal(got.is_valid_mask(), m) \
+            or not all(torch.equal(_bits(a[m]), _bits(b[m]))
+                       for a, b in zip(planes(got), planes(want))):
+        raise AssertionError(f"{what}: differs from the source")
+
+
+def _py_key(v):
+    """Python order of a list row with None first (the reference's tuple
+    keys of list<int64> with child nulls first)."""
+    return (0,) if v is None else (1, tuple(v))
+
+
+def p28_cast_columns(dev):
+    """Phase 27's 10M rows' List<Int64>, Struct{Int32, Dictionary<Utf8>},
+    RunEnd<Int32, Int64> and a month_day_nano of whole nanoseconds with
+    zero months and days, made on the card from splitmix."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import (ListColumn, PrimitiveColumn,
+                                             StructColumn)
+    from arrow_tpu_torch.core import nested as nd
+    n = CONFIG2_ROWS
+    _, (i32, _, dcol) = config2_inputs(n, dev)
+    h = [splitmix(n, k * n, dev) for k in (20, 21, 22)]
+    lens = _umod(h[0], 8)
+    offs = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+    x = splitmix(int(offs[-1]), 23 * n, dev)
+    lst = ListColumn(offs.to(torch.int32), PrimitiveColumn(
+        x >> _umod(x, 64), dt.int64), _umod(_lsr(h[0], 8), 10) != 0)
+    st = StructColumn([i32, dcol], [dt.Field("i32", dt.int32),
+                                    dt.Field("d", dcol.dtype)],
+                      _umod(h[2], 20) != 0)
+    run_lens = 1 + _umod(splitmix(n // 16, 24 * n, dev), 64)
+    ends = torch.cumsum(run_lens, 0)
+    ends = torch.cat([ends[ends < n], ends.new_full((1,), n)])
+    ree = nd.RunEndColumn(ends.to(torch.int32), PrimitiveColumn(
+        splitmix(ends.shape[0], 25 * n, dev) >> 12, dt.int64), n)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    mdn = nd.IntervalMDNColumn(zeros, zeros, h[1] >> 2,
+                               _umod(h[2], 7) != 0)
+    return {"list": lst, "struct": st, "run_end": ree, "interval": mdn}
+
+
+def p28_host_columns(table, g, dev):
+    """The 1M-row inputs of the text casts: l_shipdate, an Int64, a
+    Float64 of every exponent and a month_day_nano of months and days
+    (the reference parses no 'mins' or 'secs', so its text of a clock
+    does not come back)."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import PrimitiveColumn
+    from arrow_tpu_torch.core.nested import IntervalMDNColumn
+    k = P28_HOST_ROWS
+    h = splitmix(k, 13 * k, dev)
+    bits = (h & ~(0x7FF << 52)) | (_umod(_lsr(h, 3), 2046) + 1) << 52
+    mdn = IntervalMDNColumn((1 + _umod(h, 24)).to(torch.int32),
+                            (_umod(_lsr(h, 16), 61) - 30).to(torch.int32),
+                            torch.zeros(k, dtype=torch.int64, device=dev))
+    return {"date": table.column("l_shipdate").slice(0, k),
+            "int64": PrimitiveColumn(splitmix(k, 14 * k, dev), dt.int64),
+            "float64": PrimitiveColumn(bits.view(torch.float64), dt.float64),
+            "interval": mdn}
+
+
+def run_phase28(dev, profile: bool) -> list:
+    """Phase 28: TPC-H SF10 lineitem's decimal keys through group_by,
+    sort_table and rank, a run-end key, struct and list keys, the
+    remaining casts and RowConverter.  Returns the kernel entries and the
+    calls `check_against_cpu` holds to the CPU route."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import (PrimitiveColumn, StringColumn,
+                                             StructColumn)
+    from arrow_tpu_torch.core.table import Table
+    from arrow_tpu_torch.ops import cast as pc
+    from arrow_tpu_torch.ops.groupby import AggSpec, group_by
+    from arrow_tpu_torch.ops.ree import run_end_encode
+    from arrow_tpu_torch.ops.row_format import (RowConverter, SortField,
+                                                SortOptions)
+    from arrow_tpu_torch.ops.sort import (SortColumn, lexsort_to_indices,
+                                          rank, sort_table, sort_to_indices)
+    from arrow_tpu_torch.ops.strings import dictionary_decode
+    from arrow_tpu_torch.ops.take import take_table
+    n = P28_ROWS
+    what = f"phase 28, TPC-H SF10 lineitem, {n:,} rows"
+    torch.cuda.reset_peak_memory_stats()
+    table, g = tpch_lineitem(n, dev)
+    limbs = nbytes(*[c.limbs for c in table.columns if hasattr(c, "limbs")])
+    print(f"{what}: {g['okeys'].shape[0]:,} orders, {limbs / 1e9:.2f} GB of "
+          f"decimal limbs, peak {peak_gib():.2f} GiB", flush=True)
+    times, entries, cpu_calls = {}, [], []
+
+    def timed(name, fn):
+        times[name] = time_ms(fn)
+        if profile:
+            profile_call(f"{what} {name}", fn)
+
+    def once(name, fn):
+        """A host-bound call's result and its one CUDA-event time."""
+        out, times[name] = once_ms(fn)
+        return out
+
+    # group_by l_discount, l_tax: the sort plan, K1 and K2
+    aggs = [AggSpec("l_linenumber", "count_all"),
+            AggSpec("l_linenumber", "sum"), AggSpec("l_shipdate", "min"),
+            AggSpec("l_shipdate", "max")]
+    keys = ["l_discount", "l_tax"]
+    _reset_counts()
+    with watch("compact", "groupby") as k1_calls, \
+            watch("grouped_aggregate", "groupby") as k2_calls:
+        out = group_by(table, keys, aggs)
+    launches = _read_counts(f"{what} group_by discount, tax", "compact")
+    if launches["grouped_aggregate"] <= 0:
+        raise AssertionError(f"{what}: group_by discount, tax never "
+                             f"launched grouped_aggregate")
+    _p28_groupby_check(out, g, f"{what} group_by discount, tax")
+    print(f"{what}: group_by discount, tax: {out.num_rows} groups on the "
+          f"sort plan, equal to bincount / index_add_ / scatter_reduce_ "
+          f"over disc * 9 + tax", flush=True)
+    del out
+    timed("group_by discount, tax", lambda: group_by(table, keys, aggs))
+    cpu_calls.append(("group_by discount, tax", group_by, table, keys, aggs))
+    (keep, arrays), kwargs = k1_calls[0][0][:2], k1_calls[0][1]
+    site = _compact_site(f"phase 28 sort-plan run starts, decimal (discount,"
+                         f" tax) keys, {n:,} rows", keep, tuple(arrays),
+                         kwargs.get("out_cap"),
+                         lambda: (arrays[0][keep], keep.nonzero()),
+                         kwargs.get("positions"))
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    entries.append(_entry(site, launches["compact"], err))
+    site = _k2_site(f"phase 28 sort plan, min/max of l_shipdate over "
+                    f"{k2_calls[0][0][1]} (discount, tax) groups, {n:,} rows",
+                    k2_calls[0])
+    err = check_site(site, same_aggregates, f"K2 at {site.call_site}")
+    entries.append(_entry(site, launches["grouped_aggregate"], err))
+    del site, keep, arrays, k1_calls, k2_calls
+
+    # sort_table by price descending, then order key; rank of the price
+    names = ["l_orderkey", "l_extendedprice", "l_shipdate"]
+    sub = Table([table.column(c) for c in names], dt.Schema(tuple(
+        table.schema.field(c) for c in names)))
+    by = [("l_extendedprice", SortOptions(descending=True)),
+          ("l_orderkey", SortOptions())]
+    idx = lexsort_to_indices([SortColumn(sub.column(c), o) for c, o in by])
+    idx = idx.values.to(torch.int64)
+    _p28_sorted_check(idx, g["l_extendedprice"], sub.column(
+        "l_orderkey").values, f"{what} sort_table price desc, orderkey")
+    _same(sort_table(sub, by), take_table(sub, idx),
+          f"{what} sort_table against take_table by its order")
+    print(f"{what}: sort_table by price descending, order key: a "
+          f"permutation, prices non-increasing, ties by order key and row",
+          flush=True)
+    del idx
+    timed("sort_table price desc, orderkey", lambda: sort_table(sub, by))
+    cpu_calls.append(("sort_table price desc, orderkey", sort_table, sub,
+                      by))
+    price = table.column("l_extendedprice")
+    _reset_counts()
+    with watch("compact", "sort") as k1_calls:
+        r = rank(price)
+    launches = _read_counts(f"{what} rank l_extendedprice", "compact")
+    cents = g["l_extendedprice"]
+    want = torch.searchsorted(torch.sort(cents).values, cents, right=True)
+    if not torch.equal(r.to(torch.int64), want):
+        raise AssertionError(f"{what}: rank differs from the searchsorted "
+                             f"rank of the generator's cents")
+    print(f"{what}: rank of l_extendedprice equal to a searchsorted rank",
+          flush=True)
+    del r, want
+    timed("rank l_extendedprice", lambda: rank(price))
+    cpu_calls.append(("rank l_extendedprice", rank, price))
+    (keep, arrays), kwargs = k1_calls[0][0][:2], k1_calls[0][1]
+    site = _compact_site(f"phase 28 rank run starts, decimal l_extendedprice"
+                         f", {n:,} rows", keep, tuple(arrays), None,
+                         lambda: keep.nonzero(), kwargs.get("positions"))
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    entries.append(_entry(site, launches["compact"], err))
+    del site, keep, arrays, k1_calls
+
+    # group_by run_end_encode(l_orderkey): 15M groups
+    ree = run_end_encode(table.column("l_orderkey"))
+    rtab = Table([ree, table.column("l_linenumber")], dt.Schema((
+        dt.Field("k", ree.dtype), dt.Field("v", dt.int32))))
+    ragg = [AggSpec("v", "count_all")]
+    _reset_counts()
+    with watch("compact", "groupby") as k1_calls:
+        out = group_by(rtab, ["k"], ragg)
+    launches = _read_counts(f"{what} group_by run-end l_orderkey", "compact")
+    if not torch.equal(out.column("v_count_all").values, g["lines"]) or \
+            out.column("k").dtype != ree.dtype or not torch.equal(
+                out.column("k").values.values, g["okeys"]):
+        raise AssertionError(f"{what}: group_by run-end l_orderkey differs "
+                             f"from the generator's line counts")
+    print(f"{what}: group_by run_end_encode(l_orderkey): {out.num_rows:,} "
+          f"groups ({ree.num_runs:,} runs), counts equal to the generator's",
+          flush=True)
+    del out
+    timed("group_by run-end l_orderkey", lambda: group_by(rtab, ["k"], ragg))
+    cpu_calls.append(("group_by run-end l_orderkey", group_by, rtab, ["k"],
+                      ragg))
+    (keep, arrays), kwargs = k1_calls[0][0][:2], k1_calls[0][1]
+    site = _compact_site(f"phase 28 sort-plan run starts, run-end l_orderkey"
+                         f", {n:,} rows", keep, tuple(arrays),
+                         kwargs.get("out_cap"),
+                         lambda: (arrays[0][keep], keep.nonzero()),
+                         kwargs.get("positions"))
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    entries.append(_entry(site, launches["compact"], err))
+    del site, keep, arrays, k1_calls, ree
+
+    # struct and list keys at 1M rows (host comparator ranks)
+    k = P28_HOST_ROWS
+    flag = table.column("l_returnflag").slice(0, k)
+    stat = table.column("l_linestatus").slice(0, k)
+    st = StructColumn([flag, stat], [dt.Field("f", flag.dtype),
+                                     dt.Field("s", stat.dtype)])
+    stab = Table([st, table.column("l_linenumber").slice(0, k)], dt.Schema((
+        dt.Field("k", st.dtype), dt.Field("v", dt.int32))))
+    _reset_counts()
+    with watch("compact", "groupby") as k1_calls:
+        out = once(f"group_by struct (flag, status) ({k:,} rows)",
+                   lambda: group_by(stab, ["k"], ragg))
+    launches = _read_counts(f"{what} group_by struct (flag, status), "
+                            f"{k:,} rows", "compact")
+    code = g["flag"][:k] * 2 + g["status"][:k]
+    cnt = torch.bincount(code, minlength=6)
+    if not torch.equal(out.column("v_count_all").values,
+                       cnt[cnt.nonzero().squeeze(1)]):
+        raise AssertionError(f"{what}: group_by struct differs from the "
+                             f"bincount of flag * 2 + status")
+    del out
+    cpu_calls.append((f"group_by struct (flag, status) ({k:,} rows)",
+                      group_by, stab, ["k"], ragg))
+    (keep, arrays), kwargs = k1_calls[0][0][:2], k1_calls[0][1]
+    site = _compact_site(f"phase 28 sort-plan run starts, struct (flag, "
+                         f"status) key, {k:,} rows", keep, tuple(arrays),
+                         kwargs.get("out_cap"),
+                         lambda: (arrays[0][keep], keep.nonzero()),
+                         kwargs.get("positions"))
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    entries.append(_entry(site, launches["compact"], err))
+    del site, keep, arrays, k1_calls
+    sby = [("k", SortOptions()), ("v", SortOptions(descending=True))]
+    got = once(f"sort_table struct key ({k:,} rows)",
+               lambda: sort_table(stab, sby))
+    c = got.column("k").children
+    key = (c[0].codes.to(torch.int64) * 2 + c[1].codes) * 8 + \
+        (7 - got.column("v").values.to(torch.int64))
+    if bool((key[1:] < key[:-1]).any()):
+        raise AssertionError(f"{what}: sort_table by the struct key out of "
+                             f"order")
+    del got, c, key
+    cpu_calls.append((f"sort_table struct key ({k:,} rows)", sort_table,
+                      stab, sby))
+    lst = _p28_list_key(k, dev)
+    rows = lst.to_pylist()
+    order = once(f"sort_to_indices List<Int64> ({k:,} rows)",
+                 lambda: sort_to_indices(lst))
+    if sorted(range(k), key=lambda i: _py_key(rows[i])) != \
+            order.values.to(torch.int64).cpu().tolist():
+        raise AssertionError(f"{what}: sort_to_indices of the list key "
+                             f"differs from Python's stable sort")
+    del rows, order
+    cpu_calls.append((f"sort_to_indices List<Int64> ({k:,} rows)",
+                      sort_to_indices, lst))
+    print(f"{what}: struct key group_by (bincount) and sort_table, list key "
+          f"sort_to_indices (Python's stable sort) at {k:,} rows", flush=True)
+
+    # casts on the card at 10M rows
+    cc = p28_cast_columns(dev)
+    dev_casts = [
+        ("List<Int64> -> List<Int32>", cc["list"], dt.list_(dt.int32)),
+        ("List<Int64> -> LargeList<Int64>", cc["list"],
+         dt.large_list(dt.int64)),
+        ("Struct{Int32, Dictionary} -> Struct{Int64, Dictionary<int64>}",
+         cc["struct"], dt.struct([dt.Field("i32", dt.int64), dt.Field(
+             "d", dt.dictionary(dt.int64, dt.utf8))])),
+        ("RunEnd<Int32, Int64> -> RunEnd<Int64, Float64>", cc["run_end"],
+         dt.run_end_encoded(dt.int64, dt.float64)),
+        ("IntervalMDN -> duration[ns]", cc["interval"], dt.duration("ns"))]
+    for name, col, to in dev_casts:
+        timed(f"cast {name}", lambda col=col, to=to: pc.cast(col, to))
+        cpu_calls.append((f"cast {name}", pc.cast, col, to))
+    r2 = pc.cast(cc["run_end"], dt.run_end_encoded(dt.int64, dt.float64))
+    if r2.num_runs != cc["run_end"].num_runs or not torch.equal(
+            r2.values.values, cc["run_end"].values.values.to(torch.float64)):
+        raise AssertionError(f"{what}: the run-end cast lost its runs")
+    dur = pc.cast(cc["interval"], dt.duration("ns"))
+    _same_values(pc.cast(dur, dt.interval("month_day_nano")),
+                 cc["interval"],
+                 f"{what}: month_day_nano -> duration -> month_day_nano")
+    timed("cast duration[ns] -> IntervalMDN",
+          lambda: pc.cast(dur, dt.interval("month_day_nano")))
+    cpu_calls.append(("cast duration[ns] -> IntervalMDN", pc.cast, dur,
+                      dt.interval("month_day_nano")))
+    del r2, dur
+    print(f"{what}: list, struct, run-end (runs kept) and interval casts at "
+          f"{CONFIG2_ROWS:,} rows on the card", flush=True)
+
+    # text casts at 1M rows (host parsing and formatting)
+    hc = p28_host_columns(table, g, dev)
+    for name in ("date", "int64", "float64", "interval"):
+        col = hc[name]
+        text = once(f"cast {name} -> utf8 ({k:,} rows)",
+                    lambda: pc.cast(col, dt.utf8))
+        back = once(f"cast utf8 -> {name} ({k:,} rows)",
+                    lambda: pc.cast(text, col.dtype))
+        _same_values(back, col, f"{what}: {name} -> utf8 -> {name}")
+        cpu_calls.append((f"cast {name} -> utf8 ({k:,} rows)", pc.cast, col,
+                          dt.utf8))
+        cpu_calls.append((f"cast utf8 -> {name} ({k:,} rows)", pc.cast, text,
+                          col.dtype))
+    second = _umod(splitmix(k, 15 * k, dev), 86_400)
+    days = hc["date"].values.to(torch.int64)
+    stamps = StringColumn.from_pylist(
+        [f"{d}T{s // 3600:02d}:{s // 60 % 60:02d}:{s % 60:02d}" for d, s in
+         zip(pc.cast(hc["date"], dt.utf8).to_pylist(), second.tolist())],
+        device=dev)
+    ts = once(f"cast utf8 -> timestamp[us] ({k:,} rows)",
+              lambda: pc.cast(stamps, dt.timestamp("us")))
+    if not torch.equal(ts.values, (days * 86_400 + second) * 1_000_000):
+        raise AssertionError(f"{what}: utf8 -> timestamp[us] differs from "
+                             f"the closed form")
+    cpu_calls.append((f"cast utf8 -> timestamp[us] ({k:,} rows)", pc.cast,
+                      stamps, dt.timestamp("us")))
+    raw = pc.cast(stamps, dt.binary)
+    enc = once(f"base64_encode ({k:,} rows)", lambda: pc.base64_encode(raw))
+    _same(once(f"base64_decode ({k:,} rows)", lambda: pc.base64_decode(enc)),
+          raw, f"{what}: base64 round trip")
+    cpu_calls.append((f"base64_encode ({k:,} rows)", pc.base64_encode, raw))
+    cpu_calls.append((f"base64_decode ({k:,} rows)", pc.base64_decode, enc))
+    print(f"{what}: date, int64, float64 (bits) and interval text round "
+          f"trips, utf8 -> timestamp[us] (closed form) and base64 at {k:,} "
+          f"rows", flush=True)
+    del table, sub, price, rtab, g
+
+    # RowConverter over config 2's 10M rows
+    _, (i32, tsc, dcol) = config2_inputs(CONFIG2_ROWS, dev)
+    cols = [i32, tsc, dcol, dictionary_decode(dcol)]
+    conv = RowConverter([SortField() for _ in cols])
+    rows = conv.convert_columns(cols)
+    for name, got, want in zip(("i32", "ts", "dictionary", "words"),
+                               conv.convert_rows(rows, cols), cols):
+        gv = got.validity if got.validity is not None else None
+        if (gv is None) != (want.validity is None) or (
+                gv is not None and not torch.equal(gv, want.validity)):
+            raise AssertionError(f"{what}: convert_rows {name} validity")
+        m = want.is_valid_mask()
+        if name == "words":
+            same = torch.equal(got.offsets.to(torch.int64),
+                               want.offsets.to(torch.int64)) and \
+                torch.equal(got.data, want.data)
+        else:
+            a, b = (got.codes, want.codes) if name == "dictionary" \
+                else (got.values, want.values)
+            same = torch.equal(_bits(a[m]), _bits(b[m]))
+        if not same:
+            raise AssertionError(f"{what}: convert_rows {name}")
+    if not torch.equal(rows.argsort().to(torch.int64), lexsort_to_indices(
+            [SortColumn(c) for c in cols]).values.to(torch.int64)):
+        raise AssertionError(f"{what}: Rows.argsort differs from "
+                             f"lexsort_to_indices")
+    print(f"RowConverter over config 2's {CONFIG2_ROWS:,} rows: "
+          f"{rows.data.shape[1]} bytes a row; convert_rows gives back every "
+          f"column; Rows.argsort equals lexsort_to_indices", flush=True)
+    timed("RowConverter.convert_columns (config 2)",
+          lambda: conv.convert_columns(cols))
+    timed("Rows.argsort (config 2)", rows.argsort)
+    cpu_calls.append(("RowConverter.convert_columns (config 2)",
+                      lambda *c: conv.convert_columns(c).data, *cols))
+    print(f"phase 28 peak device memory {peak_gib():.2f} GiB; times (CUDA "
+          f"events: median of 5, host-bound calls one run; ms): "
+          + json.dumps(times), flush=True)
+    return entries, [(f"{what}: {name}", fn, args)
+                     for name, fn, *args in cpu_calls]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace the group-bys, the joins, configs 2 "
-                         "and 3 and phases 24-27 with torch.profiler")
+                         "and 3 and phases 24-28 with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2465,9 +3025,10 @@ def main(argv=None) -> int:
     entries += run_phase25(dev, args.profile)
     e26, checks26 = run_phase26(dev, args.profile)
     e27, checks27 = run_phase27(dev, args.profile)
-    entries += e26 + e27
-    check_against_cpu(checks26 + checks27)
-    del checks26, checks27
+    e28, checks28 = run_phase28(dev, args.profile)
+    entries += e26 + e27 + e28
+    check_against_cpu(checks26 + checks27 + checks28)
+    del checks26, checks27, checks28
 
     sources = {
         "compact": {"route": "cuda",

@@ -252,9 +252,9 @@ def test_reductions(rng, case, fn, nulls):
 
 
 def test_decimal_columns_through_filter_and_sort_keys(rng):
-    """A decimal32 column compacts with the batch; as a sort key it raises
-    naming ROADMAP A7.4."""
-    from arrow_tpu_torch.errors import ArrowNotImplementedError
+    """A decimal32 column compacts with the batch; as a sort key it sorts
+    by its storage integer, as the reference's 'int' key (ROADMAP
+    A7.4)."""
     from arrow_tpu_torch.ops.sort import sort_to_indices
     col = ref_decimal(rng, "decimal32", 7, 2)
     keep = rng.random(N) < 0.5
@@ -264,5 +264,7 @@ def test_decimal_columns_through_filter_and_sort_keys(rng):
     assert_columns_equal(
         pfilter.filter(port_column(col), att.from_numpy(keep, device="cpu")),
         rfilter.filter(col, at.column(keep)), "filter", masks=True)
-    with pytest.raises(ArrowNotImplementedError, match="A7.4"):
-        sort_to_indices(port_column(col))
+    rsort = importlib.import_module("arrow_tpu.ops.sort")
+    got = sort_to_indices(port_column(col)).values.numpy().view(np.uint32)
+    want = np.asarray(rsort.sort_to_indices(col).values)
+    assert got.tolist() == want.tolist()
