@@ -6,8 +6,9 @@ once, at finish(): an upload per append would cost a copy each.  Leaf
 builders name the device; container builders (list, fixed-size list,
 struct, map, dictionary) take their first child's.  The dictionary
 builder interns values in a dict, like generic_bytes_dictionary_builder.rs.
-The large and binary string builders wait with their types (ROADMAP
-A7.5).
+The byte builders take str or bytes for every string and binary type;
+`make_builder` also gives one for utf8_view and binary_view, which hold
+the offset layout (the reference has none for the views).
 """
 
 from __future__ import annotations
@@ -19,12 +20,13 @@ import torch
 
 from .. import dtypes as dt
 from ..config import DeviceLike, resolve_device
-from ..errors import ArrowInvalid, ArrowNotImplementedError, ArrowTypeError
+from ..errors import ArrowInvalid, ArrowTypeError
 from .column import (DictionaryColumn, ListColumn, NullColumn,
                      PrimitiveColumn, StringColumn, StructColumn)
 
 __all__ = [
     "PrimitiveBuilder", "BooleanBuilder", "StringBuilder",
+    "LargeStringBuilder", "BinaryBuilder", "LargeBinaryBuilder",
     "FixedSizeBinaryBuilder", "Decimal128Builder", "Decimal256Builder",
     "DecimalBuilder", "IntervalMDNBuilder", "DictionaryBuilder",
     "StringDictionaryBuilder", "ListBuilder", "FixedSizeListBuilder",
@@ -99,11 +101,12 @@ class BooleanBuilder(PrimitiveBuilder):
         return super().append(None if v is None else bool(v))
 
 
-class StringBuilder(_Base):
-    """GenericByteBuilder (builder/generic_bytes_builder.rs) for utf8."""
+class _BytesBuilder(_Base):
+    """GenericByteBuilder (builder/generic_bytes_builder.rs): str or
+    bytes values of one string or binary type."""
 
-    def __init__(self, device: DeviceLike = None):
-        self.dtype = dt.utf8
+    def __init__(self, dtype: dt.DataType, device: DeviceLike = None):
+        self.dtype = dtype
         self.device = resolve_device(device)
         self._values: List = []
         self._valid: List[bool] = []
@@ -112,7 +115,7 @@ class StringBuilder(_Base):
     def append(self, v):
         if v is None:
             return self.append_null()
-        self._values.append(v if isinstance(v, str) else bytes(v).decode())
+        self._values.append(v if isinstance(v, str) else bytes(v))
         return self._push(True)
 
     append_value = append
@@ -122,9 +125,30 @@ class StringBuilder(_Base):
         return self._push(False)
 
     def finish(self) -> StringColumn:
-        out = StringColumn.from_pylist(self._values, device=self.device)
-        StringBuilder.__init__(self, self.device)
+        out = StringColumn.from_pylist(self._values, self.dtype,
+                                       device=self.device)
+        _BytesBuilder.__init__(self, self.dtype, self.device)
         return out
+
+
+class StringBuilder(_BytesBuilder):
+    def __init__(self, device: DeviceLike = None):
+        super().__init__(dt.utf8, device)
+
+
+class LargeStringBuilder(_BytesBuilder):
+    def __init__(self, device: DeviceLike = None):
+        super().__init__(dt.large_utf8, device)
+
+
+class BinaryBuilder(_BytesBuilder):
+    def __init__(self, device: DeviceLike = None):
+        super().__init__(dt.binary, device)
+
+
+class LargeBinaryBuilder(_BytesBuilder):
+    def __init__(self, device: DeviceLike = None):
+        super().__init__(dt.large_binary, device)
 
 
 class FixedSizeBinaryBuilder(_Base):
@@ -441,6 +465,10 @@ class NullBuilder(_Base):
         return NullColumn(n, self.device)
 
 
+_BYTES_BUILDERS = {"utf8": StringBuilder, "large_utf8": LargeStringBuilder,
+                   "binary": BinaryBuilder, "large_binary": LargeBinaryBuilder}
+
+
 def make_builder(dtype: dt.DataType, device: DeviceLike = None):
     """The builder of a type on `device` (builder/mod.rs make_builder)."""
     if dtype.is_null:
@@ -453,8 +481,6 @@ def make_builder(dtype: dt.DataType, device: DeviceLike = None):
         return DecimalBuilder(dtype, device)
     if dtype.unit == "month_day_nano":
         return IntervalMDNBuilder(device)
-    if dtype.name == "utf8":
-        return StringBuilder(device)
     if dtype.name == "fixed_size_binary":
         return FixedSizeBinaryBuilder(dtype.list_size, device)
     if dtype.name == "dictionary":
@@ -473,8 +499,8 @@ def make_builder(dtype: dt.DataType, device: DeviceLike = None):
         kv = dtype.value_type
         return MapBuilder(make_builder(kv.fields[0].dtype, device),
                           make_builder(kv.fields[1].dtype, device))
-    if dtype.is_string or dtype.is_binary:
-        raise ArrowNotImplementedError(
-            f"builder of {dtype!r}: the large, view and binary string "
-            "columns join with ROADMAP A7.5")
+    if dtype.name in _BYTES_BUILDERS:
+        return _BYTES_BUILDERS[dtype.name](device)
+    if dtype.is_string or dtype.is_binary:         # the two views
+        return _BytesBuilder(dtype, device)
     raise ArrowTypeError(f"no builder for {dtype}")

@@ -11,9 +11,16 @@ arrow_tpu/core/column.py).
     host conversion views the bits back as the logical numpy dtype.
 
 Class map (reference -> here): PrimitiveColumn (numeric, bool, temporal
-and decimal32/64), StringColumn, DictionaryColumn, ListColumn,
+and decimal32/64), StringColumn (utf8, large_utf8, utf8_view, binary,
+large_binary and binary_view), DictionaryColumn, ListColumn,
 StructColumn and NullColumn, each on the device the caller names; the
 other layouts are in core/nested.py.
+
+Host values: `to_pylist` lists what the reference lists.  Temporal
+columns go through pyarrow (`io/interop.py`, imported when called), as
+the reference's every `to_pylist` does (arrow_tpu/core/column.py:75-83):
+dates, datetimes, times and timedeltas.  The other kinds list directly,
+with equal values.
 
 Every column class is a torch pytree node (`torch.utils._pytree`), as
 the reference's columns are jax pytrees: their tensors are the leaves,
@@ -36,7 +43,7 @@ from . import validity as vd
 
 __all__ = ["Column", "PrimitiveColumn", "StringColumn", "DictionaryColumn",
            "ListColumn", "StructColumn", "NullColumn", "column",
-           "from_numpy"]
+           "from_numpy", "offset_dtype"]
 
 
 class Column:
@@ -64,6 +71,11 @@ class Column:
 
     def to_pylist(self) -> list:
         raise NotImplementedError
+
+    def to_pyarrow(self):
+        """The column as a pyarrow array (io/interop.py)."""
+        from ..io.interop import column_to_pyarrow
+        return column_to_pyarrow(self)
 
     def _mask_host(self) -> Optional[np.ndarray]:
         return None if self.validity is None else self.validity.cpu().numpy()
@@ -138,6 +150,8 @@ class PrimitiveColumn(Column):
         return self.values.cpu().numpy().view(self.dtype.to_numpy())
 
     def to_pylist(self) -> list:
+        if self.dtype.is_temporal and self.dtype.name != "interval":
+            return self.to_pyarrow().to_pylist()
         out = self.to_numpy().tolist()
         if self.dtype.is_decimal:          # unscaled ints -> Decimal
             out = [_decimal_value(v, self.dtype.scale) for v in out]
@@ -153,10 +167,29 @@ def _decimal_value(unscaled: int, scale: int):
     return Decimal(unscaled).scaleb(-scale)
 
 
+def offset_dtype(d: dt.DataType) -> torch.dtype:
+    """The offsets' dtype of a string layout: int64 for large_utf8 and
+    large_binary, int32 for utf8, binary and the two views (which hold
+    the offset layout, as the reference's ingest makes them)."""
+    return torch.int64 if d.name in ("large_utf8", "large_binary") \
+        else torch.int32
+
+
+def _narrow_offsets(offsets: np.ndarray, want: np.dtype) -> np.ndarray:
+    """Host offsets at `want`'s width; past int32 they raise."""
+    if want == np.int32 and offsets.dtype != np.int32 and len(offsets) \
+            and int(offsets[-1]) > np.iinfo(np.int32).max:
+        raise ArrowInvalid(f"{int(offsets[-1])} bytes overflow int32 "
+                           "offsets: use a large string type")
+    return offsets.astype(want, copy=False)
+
+
 class StringColumn(Column):
-    """Variable-length strings in the Arrow Utf8 layout
+    """Variable-length bytes in the Arrow offset layout
     (arrow-array/src/array/byte_array.rs:87): offsets (n+1,) and data
     bytes, both on the column's device, as the reference keeps them.
+    The offsets are int64 for large_utf8 and large_binary, int32 for
+    utf8, binary, utf8_view and binary_view (`offset_dtype`).
 
     Not a hot compute layout: comparisons, sorts, group-bys and joins
     dictionary-encode first (ops/strings.py); take, filter and concat
@@ -164,16 +197,15 @@ class StringColumn(Column):
 
     def __init__(self, offsets: torch.Tensor, data: torch.Tensor,
                  dtype: dt.DataType = dt.utf8, validity: vd.Mask = None):
-        if offsets.dim() != 1 or offsets.dtype not in (torch.int32,
-                                                       torch.int64) \
+        if offsets.dim() != 1 or offsets.dtype != offset_dtype(dtype) \
                 or data.dim() != 1 or data.dtype != torch.uint8 \
                 or data.device != offsets.device:
             raise ArrowInvalid(
-                f"a string column needs int32/int64 offsets and uint8 data "
-                f"on one device, got {offsets.dtype} on {offsets.device} "
-                f"and {data.dtype} on {data.device}")
+                f"a {dtype!r} column needs {offset_dtype(dtype)} offsets and "
+                f"uint8 data on one device, got {offsets.dtype} on "
+                f"{offsets.device} and {data.dtype} on {data.device}")
         _check_mask(validity, offsets.shape[0] - 1, offsets.device)
-        self.offsets = offsets          # int32 (utf8) / int64, (n+1,)
+        self.offsets = offsets          # (n+1,), offset_dtype(dtype)
         self.data = data                # uint8, (nbytes,)
         self.dtype = dtype
         self.validity = validity
@@ -199,29 +231,43 @@ class StringColumn(Column):
     def with_validity(self, validity: vd.Mask) -> "StringColumn":
         return StringColumn(self.offsets, self.data, self.dtype, validity)
 
+    def retag(self, to: dt.DataType) -> "StringColumn":
+        """The same bytes under another string or binary type, the
+        offsets at its width (narrowing reads the last offset)."""
+        want = offset_dtype(to)
+        offs = self.offsets
+        if want != offs.dtype:
+            if want == torch.int32 and len(self) and \
+                    int(offs[-1]) > torch.iinfo(torch.int32).max:
+                raise ArrowInvalid(f"{int(offs[-1])} bytes overflow int32 "
+                                   f"offsets of {to!r}")
+            offs = offs.to(want)
+        return StringColumn(offs, self.data, to, self.validity)
+
     @staticmethod
     def from_numpy(offsets: np.ndarray, data: np.ndarray,
                    validity: Optional[np.ndarray] = None,
                    dtype: dt.DataType = dt.utf8, *,
                    device: DeviceLike = None) -> "StringColumn":
-        """A string column from host offsets and bytes, on `device`."""
+        """A string column from host offsets (any integer width: they
+        take the type's) and bytes, on `device`."""
         dev = resolve_device(device)
-        offsets = np.asarray(offsets)
-        if offsets.dtype not in (np.int32, np.int64):
-            offsets = offsets.astype(np.int64)
+        want = np.dtype(dt.torch_dtype_name(offset_dtype(dtype)))
+        offsets = _narrow_offsets(np.asarray(offsets), want)
         mask = None if validity is None else torch.from_numpy(
             _host_buffer(validity, bool)).to(dev)
         return StringColumn(
-            torch.from_numpy(_host_buffer(offsets, offsets.dtype)).to(dev),
+            torch.from_numpy(_host_buffer(offsets, want)).to(dev),
             torch.from_numpy(_host_buffer(data, np.uint8)).to(dev), dtype,
             mask)
 
     @staticmethod
     def from_pylist(values: Sequence, dtype: dt.DataType = dt.utf8, *,
                     device: DeviceLike = None) -> "StringColumn":
-        """Python strings (None for null) on `device`."""
-        chunks = [b"" if s is None else s.encode() for s in values]
-        offsets = np.zeros(len(chunks) + 1, np.int32)
+        """Python str or bytes values (None for null) on `device`."""
+        chunks = [b"" if s is None else s.encode() if isinstance(s, str)
+                  else bytes(s) for s in values]
+        offsets = np.zeros(len(chunks) + 1, np.int64)
         np.cumsum([len(c) for c in chunks], out=offsets[1:])
         data = np.frombuffer(b"".join(chunks), dtype=np.uint8)
         mask = np.array([s is not None for s in values], dtype=bool)
@@ -498,18 +544,23 @@ def from_numpy(values: np.ndarray, validity: Optional[np.ndarray] = None,
 
 def column(data, dtype: Optional[dt.DataType] = None, validity=None, *,
            device: DeviceLike = None) -> Column:
-    """Build a Column from a Python list or a numpy array, on `device`.
+    """Build a Column from a Python list, a numpy array or a pyarrow
+    array, on `device`.
 
-    Python lists may contain None (nulls).  Strings become a
-    StringColumn, lists (of lists) a ListColumn and dicts a StructColumn
-    given its type; decimal128/256 take `decimal.Decimal`s (scaled
-    exactly) or ints (whole units), decimal32/64 their unscaled ints, as
-    in the reference; interval[month_day_nano] (months, days, nanos)
-    tuples or dicts; fixed-size binary, fixed-size list, map and
-    dictionary types go through their builders (core/builders.py).
+    Python lists may contain None (nulls).  Strings and bytes become a
+    StringColumn of any string or binary type, lists (of lists) a
+    ListColumn and dicts a StructColumn given its type; decimal128/256
+    take `decimal.Decimal`s (scaled exactly) or ints (whole units),
+    decimal32/64 their unscaled ints, as in the reference;
+    interval[month_day_nano] (months, days, nanos) tuples or dicts;
+    fixed-size binary, fixed-size list, map and dictionary types go
+    through their builders (core/builders.py).
     """
     if isinstance(data, Column):
         return data
+    if type(data).__module__.startswith("pyarrow"):
+        from ..io.interop import column_from_pyarrow
+        return column_from_pyarrow(data, device)
     if isinstance(data, np.ndarray) and data.dtype != object:
         return from_numpy(data, validity, dtype, device)
     if isinstance(data, (list, tuple)):
@@ -531,13 +582,16 @@ def _column_from_pylist(values: list, dtype, validity, device) -> Column:
             dtype = dt.float64
         elif isinstance(v0, str):
             dtype = dt.utf8
+        elif isinstance(v0, (bytes, bytearray)):
+            dtype = dt.binary
         elif isinstance(v0, (list, tuple)):
             inner = _column_from_pylist([x for row in non_null for x in row],
                                         None, None, device)
             dtype = dt.list_(inner.dtype)
         else:
             raise ArrowTypeError(f"cannot infer dtype from {type(v0)}")
-    if dtype.name == "utf8":
+    if (dtype.is_string or dtype.is_binary) \
+            and dtype.name != "fixed_size_binary":
         return StringColumn.from_pylist(values, dtype, device=device)
     if dtype.is_null:
         return NullColumn(len(values), resolve_device(device))
@@ -565,9 +619,7 @@ def _column_from_pylist(values: list, dtype, validity, device) -> Column:
             b.append_null() if v is None else b.append(v)
         return b.finish()
     if not dtype.is_single_tensor:
-        raise ArrowNotImplementedError(
-            f"column of {dtype!r}: the large, view and binary string "
-            "columns join with ROADMAP A7.5")
+        raise ArrowNotImplementedError(f"column of {dtype!r}")
     if validity is None and len(non_null) != len(values):
         validity = np.asarray([v is not None for v in values], dtype=bool)
     filled = np.asarray([0 if v is None else v for v in values],

@@ -13,7 +13,7 @@ from ..config import DeviceLike
 from ..errors import ArrowInvalid, SchemaError
 from .column import Column, column as make_column, from_numpy
 
-__all__ = ["Table"]
+__all__ = ["Table", "RecordBatch"]
 
 
 class Table:
@@ -62,6 +62,17 @@ class Table:
                                    nullable=col.validity is not None))
         return Table(cols, dt.Schema(tuple(fields)))
 
+    @staticmethod
+    def from_pyarrow(batch, *, device: DeviceLike = None) -> "Table":
+        """A pyarrow Table or RecordBatch on `device` (io/interop.py)."""
+        from ..io.interop import table_from_pyarrow
+        return table_from_pyarrow(batch, device)
+
+    def to_pyarrow(self):
+        """The table as a pyarrow RecordBatch (io/interop.py)."""
+        from ..io.interop import table_to_pyarrow
+        return table_to_pyarrow(self)
+
     @property
     def num_rows(self) -> int:
         return len(self.columns[0]) if self.columns else 0
@@ -92,6 +103,9 @@ class Table:
     def __repr__(self):
         cols = ", ".join(f"{f.name}: {f.dtype!r}" for f in self.schema.fields)
         return f"Table[{self.num_rows} rows]({cols})"
+
+
+RecordBatch = Table
 
 
 pytree.register_pytree_node(

@@ -1,7 +1,7 @@
 """Tensor (counterpart of arrow_tpu/core/tensor.py; arrow src/tensor.rs):
 a dense n-dimensional value container over one device tensor, with
-shape, strides, dimension names and the row/column-major predicates.
-The pyarrow interchange waits for interop (ROADMAP A8)."""
+shape, strides, dimension names, the row/column-major predicates and
+the pyarrow interchange."""
 
 from __future__ import annotations
 
@@ -62,6 +62,19 @@ class Tensor:
 
     def to_numpy(self) -> np.ndarray:
         return self.data.cpu().numpy()
+
+    def to_pyarrow(self):
+        import pyarrow as pa
+        return pa.Tensor.from_numpy(self.to_numpy(), dim_names=list(
+            self.dim_names) if self.dim_names else None)
+
+    @staticmethod
+    def from_pyarrow(t, *, device) -> "Tensor":
+        """A pyarrow Tensor on `device`."""
+        from ..config import resolve_device
+        names = list(t.dim_names) if t.dim_names else None
+        return Tensor(torch.from_numpy(np.array(t.to_numpy())).to(
+            resolve_device(device)), names)
 
     def __repr__(self):
         names = f", dim_names={self.dim_names}" if self.dim_names else ""

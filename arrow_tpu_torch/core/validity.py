@@ -39,6 +39,12 @@ def null_count(mask: Mask, length: int) -> int:
     return length - int(mask.sum())
 
 
+def is_all_valid_host(mask: Mask) -> bool:
+    """Whether every slot is valid: reads the mask on the host (a sync);
+    for eager callers only (arrow_tpu/core/validity.py:52)."""
+    return mask is None or bool(mask.all())
+
+
 def valid_count(mask: Mask, length: int):
     """Number of valid slots: `length` when there is no mask, else a 0-d
     int64 tensor on the mask's device (no sync)."""

@@ -1,14 +1,13 @@
-"""Logical type system of the port (counterpart of arrow_tpu/dtypes.py:
-46-372,452-561).
+"""Logical type system of the port (counterpart of arrow_tpu/dtypes.py).
 
 The reference's logical-type vocabulary: null, bool, the signed and
 unsigned integers, float16/32/64, the temporal types (date32/64,
 timestamp, time32/64, duration and the three intervals: integer storage
 plus unit and timezone metadata), utf8 and dictionary, decimal32/64/128/
 256, fixed_size_binary, the list family, struct, map, union and
-run_end_encoded.  The large, view and binary string types are tags only
-(`typeparse` names them; their columns wait for ROADMAP A7.5).  The
-extension types wait for interop (A8).  `to_torch` takes the place of
+run_end_encoded; the large, view and binary string types (their columns
+are core/column.py's StringColumn); and the canonical extension types,
+which ride field metadata (`ExtensionType`).  `to_torch` takes the place of
 `to_jax` (arrow_tpu/dtypes.py:142): decimal32/64 are one int32/int64
 tensor; decimal128/256 and interval[month_day_nano] are several
 (core/nested.py) and have none.
@@ -37,7 +36,8 @@ __all__ = [
     "time32", "time64", "duration", "interval", "decimal32", "decimal64",
     "decimal128", "decimal256", "dictionary", "list_", "large_list",
     "list_view", "large_list_view", "fixed_size_list", "struct", "map_",
-    "union", "run_end_encoded", "Field", "Schema", "from_numpy_dtype",
+    "union", "run_end_encoded", "Field", "Schema", "ExtensionType", "uuid",
+    "json_", "bool8", "fixed_shape_tensor", "opaque", "from_numpy_dtype",
     "torch_dtype_name", "widen", "storage_int", "integer_bounds",
 ]
 
@@ -536,3 +536,60 @@ class Schema:
 
     def __iter__(self):
         return iter(self.fields)
+
+
+# ---- extension types (arrow-schema/src/extension/mod.rs:188) ---------------
+
+@dataclass(frozen=True)
+class ExtensionType:
+    """A logical type layered on a storage DataType through field
+    metadata (ARROW:extension:name and ARROW:extension:metadata), as the
+    reference's ExtensionType trait (arrow_tpu/dtypes.py:381-450)."""
+
+    extension_name: str
+    storage: DataType
+    extension_metadata: str = ""
+
+    def field_metadata(self) -> Tuple[Tuple[str, str], ...]:
+        md = (("ARROW:extension:name", self.extension_name),)
+        if self.extension_metadata:
+            md += (("ARROW:extension:metadata", self.extension_metadata),)
+        return md
+
+    def __repr__(self):
+        return f"extension<{self.extension_name}, {self.storage!r}>"
+
+
+def uuid() -> ExtensionType:
+    """arrow.uuid (extension/canonical/uuid.rs)."""
+    return ExtensionType("arrow.uuid", fixed_size_binary(16))
+
+
+def json_(storage: DataType = utf8) -> ExtensionType:
+    """arrow.json (extension/canonical/json.rs) over a string type."""
+    if not storage.is_string:
+        raise TypeError(f"arrow.json needs a string storage, got {storage!r}")
+    return ExtensionType("arrow.json", storage)
+
+
+def bool8() -> ExtensionType:
+    """arrow.bool8 (extension/canonical/bool8.rs): bools as int8."""
+    return ExtensionType("arrow.bool8", int8)
+
+
+def fixed_shape_tensor(value_type: DataType, shape) -> ExtensionType:
+    """arrow.fixed_shape_tensor (extension/canonical/fixed_shape_tensor.rs):
+    a fixed-size list of the shape's element count."""
+    import json
+    shape = [int(s) for s in shape]
+    return ExtensionType("arrow.fixed_shape_tensor",
+                         fixed_size_list(value_type, int(np.prod(shape))),
+                         json.dumps({"shape": shape}))
+
+
+def opaque(storage: DataType, type_name: str, vendor_name: str
+           ) -> ExtensionType:
+    """arrow.opaque (extension/canonical/opaque.rs)."""
+    import json
+    return ExtensionType("arrow.opaque", storage, json.dumps(
+        {"type_name": type_name, "vendor_name": vendor_name}))

@@ -19,7 +19,7 @@ from ..core.datum import Datum, Scalar, as_datum, broadcast_pair
 from ..errors import ArrowTypeError
 
 __all__ = ["and_", "or_", "not_", "and_kleene", "or_kleene",
-           "is_null", "is_not_null"]
+           "is_null", "is_not_null", "bool_is_static_all"]
 
 
 def _check_bool(*dts) -> None:
@@ -72,6 +72,13 @@ def or_kleene(lhs: Datum, rhs: Datum) -> PrimitiveColumn:
     value = (lv & lm) | (rv & rm)
     known = (lm & rm) | (lm & lv) | (rm & rv)
     return PrimitiveColumn(value, dt.bool_, known)
+
+
+def bool_is_static_all(mask) -> bool:
+    """Whether a mask is all true without reading the device: never
+    known, so False (boolean.py:83-86); the Kleene kernels keep their
+    mask."""
+    return False
 
 
 def is_null(col) -> PrimitiveColumn:

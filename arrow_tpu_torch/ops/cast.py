@@ -70,7 +70,8 @@ from .. import dtypes as dt
 from ..config import sync_guard
 from ..core import nested as nd, validity as vd
 from ..core.column import (Column, DictionaryColumn, ListColumn, NullColumn,
-                           PrimitiveColumn, StringColumn, StructColumn)
+                           PrimitiveColumn, StringColumn, StructColumn,
+                           offset_dtype)
 from ..errors import (ArrowInvalid, ArrowNotImplementedError,
                       ArrowTypeError, CastError)
 
@@ -240,7 +241,7 @@ def cast(col: Column, to: dt.DataType,
             raise ArrowInvalid(f"fsb width change {col.byte_width}->"
                                f"{to.list_size}")
         n, w = col.data.shape
-        offs = torch.arange(0, (n + 1) * w, w, dtype=torch.int32,
+        offs = torch.arange(0, (n + 1) * w, w, dtype=offset_dtype(to),
                             device=col.device)
         return StringColumn(offs, col.data.reshape(-1), to, col.validity)
     if not isinstance(col, PrimitiveColumn):
@@ -264,7 +265,7 @@ def _all_null(to: dt.DataType, n: int, device) -> Column:
         return DictionaryColumn(zeros(n, to.index_type.to_torch()),
                                 _all_null(to.value_type, 1, device), mask)
     if (to.is_string or to.is_binary) and name != "fixed_size_binary":
-        return StringColumn(zeros(n + 1, torch.int32),
+        return StringColumn(zeros(n + 1, offset_dtype(to)),
                             zeros(0, torch.uint8), to, mask)
     if name in ("decimal128", "decimal256"):
         k = 2 if name == "decimal128" else 4
@@ -903,7 +904,7 @@ def _cast_from_string(col: StringColumn, to: dt.DataType,
             torch.from_numpy(ok if valid is None else valid & ok
                              ).to(col.device))
     if to.is_binary or to.is_string:
-        return StringColumn(col.offsets, col.data, to, col.validity)
+        return col.retag(to)
     if not (to.is_numeric or to.is_boolean or to.is_temporal):
         raise ArrowNotImplementedError(f"parse to {to!r}")
     texts = col.to_pylist()

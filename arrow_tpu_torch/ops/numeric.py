@@ -30,7 +30,7 @@ Decimals (numeric.py:266-365) are computed as the reference computes
 them: exactly, on the host, in Python ints, with the result type of
 `_dec_result_type`, division truncating toward zero and a zero divisor
 raising only on a valid slot; the operands make one round trip to the
-host.  A device route for decimal128 arithmetic is ROADMAP A7.8.
+host, as in the reference.
 """
 
 from __future__ import annotations
@@ -249,11 +249,14 @@ def rem(lhs: Datum, rhs: Datum) -> PrimitiveColumn:
     """Checked remainder (numeric.rs rem): the dividend's sign; a zero
     divisor or MIN % -1 on a valid slot raises DivideByZero; float rem
     is the truncated fmod."""
-    if _any_decimal(lhs, rhs):
-        raise ArrowNotImplementedError(
-            "rem of decimals joins with ROADMAP A7.8")
+    for x in (lhs, rhs):
+        if isinstance(x, Column) and not isinstance(x, PrimitiveColumn):
+            raise ArrowTypeError(f"binary kernel expects primitive columns, "
+                                 f"got {type(x).__name__}")
     out_dt = _resolve("rem", lhs, rhs)
-    it = _int_type(out_dt)
+    # decimal32/64: the remainder of the unscaled storage integers
+    it = (dt.int32 if out_dt.name == "decimal32" else dt.int64) \
+        if out_dt.is_decimal else _int_type(out_dt)
     if it is None:
         return binary(lhs, rhs, lambda l, r: _x86_nans(torch.fmod(l, r), l,
                                                        r), out_dt)

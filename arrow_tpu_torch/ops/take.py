@@ -52,6 +52,10 @@ from ..errors import ArrowInvalid
 
 __all__ = ["take", "take_table", "range_gather"]
 
+# byte and row positions below this fit an int32 index (tests lower it
+# to cover the int64 route without 2 GB of data)
+INDEX32_LIMIT = 2 ** 31
+
 
 def _indices(indices: Union[PrimitiveColumn, torch.Tensor]) -> PrimitiveColumn:
     if isinstance(indices, torch.Tensor):
@@ -165,7 +169,7 @@ def range_gather(offsets: torch.Tensor, idx: torch.Tensor, limit: int
                            device=idx.device)
     torch.cumsum(ends - starts, 0, out=new_offs[1:])
     total = int(new_offs[-1])              # the one host sync
-    ix = torch.int32 if max(total, limit) < 2 ** 31 else torch.int64
+    ix = torch.int32 if max(total, limit) < INDEX32_LIMIT else torch.int64
     prev_end = torch.cat([ends.new_ones(1), ends[:-1]])
     step = torch.ones(total + 1, dtype=ix, device=idx.device)
     step.index_add_(0, new_offs[:-1], (starts - prev_end).to(ix))

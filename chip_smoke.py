@@ -124,7 +124,8 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      word of (k // 2) % 1000, the strings equal to the closed form;
      CUDA-event medians of each call, K1 at both filter sites and K2 at
      the group-by against their plain versions
- 26. TPC-H SF10 lineitem's dates (spec 4.2.3), 60M rows made on the
+ 26. TPC-H lineitem's dates (spec 4.2.3) at SF5, 30M rows (cut from
+     SF10's 60M to keep the script's time with phase 29) made on the
      card from splitmix: add_interval of the ship delay (month_day_nano
      days) equal to l_shipdate; Q1's cutoff (1998-12-01 minus 90 days as
      day_time, 1998-09-02) and filter_table of the dates table by
@@ -156,24 +157,48 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      l_extendedprice descending, then l_orderkey, held to an O(n) check;
      rank of l_extendedprice (K1) equal to a searchsorted rank of the
      generator's cents; group_by over run_end_encode(l_orderkey), 15M
-     groups (K1), equal to the generator's line counts; at 1M rows (cut:
+     groups (K1), equal to the generator's line counts; at 500K rows (cut:
      a Python key per row) a struct {l_returnflag, l_linestatus} key
      through group_by (K1) and sort_table, a List<Int64> key through
      sort_to_indices against Python's stable sort; at 10M rows on the
      card the list, struct, run-end (runs kept) and interval casts; at
-     1M rows (cut: host parsing and formatting) the text round trips of
+     500K rows (cut: host parsing and formatting) the text round trips of
      l_shipdate, an Int64, a Float64 (bits) and a month_day_nano, utf8 ->
      timestamp[us] against its closed form, base64; RowConverter over
      config 2's 10M rows (convert_rows gives back every column,
      Rows.argsort equals lexsort_to_indices).  Every call is held to the
      same call on CPU copies; K1 and K2 at the new sites against their
      plain versions.
+ 29. TPC-H SF10's string predicates: part (2M rows), supplier (100K),
+     customer (1.5M) and orders (15M) string columns made on the host
+     with numpy by the spec's rules (4.2.3; text cut from a pool of the
+     4.2.2.13-14 grammar, about 730 MB of o_comment), built as pyarrow
+     tables and brought onto the card by table_from_pyarrow (each
+     round-trips through table_to_pyarrow): Q9's contains / like green,
+     Q20's starts_with forest, Q14's like PROMO%, Q2's ends_with BRASS,
+     Q16's nlike MEDIUM POLISHED%, neq Brand#45 and like
+     %Customer%Complaints%; Q13's nlike %special%requests% (and its
+     regexp_is_match negation and ilike) over utf8, then over the
+     large_utf8, binary and utf8_view casts, filter_table of orders with
+     the large_utf8 comment aboard (one K1 launch) and group_by
+     o_custkey count_all (the sort plan, K1 at its run starts) against
+     bincount; Q22's substring(c_phone, 0, 2), dictionary_encode and
+     group_by with count_all and sum(c_acctbal) (K2, dictionary plan)
+     against bincount / add.at, printed by pretty_format_table; upper /
+     lower of p_type, length / octet_length / bit_length of o_comment,
+     concat_elements(p_brand, p_container), concat of four slices of
+     the large_utf8 comment, take by a permutation, regexp_match at 1M
+     rows (cut: a Python list a row).  Every output equals
+     pyarrow.compute over the source tables and its closed form; every
+     call is held to the same call on CPU copies; the calls' first runs
+     go through op_timer, whose report is printed; o_comment's copy to
+     the host is timed apart.
 
 `--profile` also traces the dictionary and config-4 group-bys, the
 config-5 joins on both plans, one streamed chunk, config 2 (eager and
 fused), config 3 (lexsort, sort_table), phase 24's streamed run,
 phase 25's decode, encode, filters and join and every call of phases
-26-28 on the card (not the host-bound ones) with torch.profiler and
+26-29 on the card (not the host-bound ones) with torch.profiler and
 prints, for each, the device time per kernel, the host wall time and
 the card's idle share; a breakdown whose trace drops a K1 or K2 launch
 is taken again, and printed null when no trace is complete.
@@ -192,7 +217,8 @@ join; the semi and anti joins; the merge-plan join; the colliding
 two-column join), the filter_table call of config 2's WHERE, the
 rank and partition calls of step 23, the first streamed run of step 24,
 the group_by and filter_table calls of steps 25-27, the group_by and
-rank calls of step 28.
+rank calls of step 28, Q13's filter_table and group_by and Q22's
+group_by in step 29.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object of per-kernel results; the last line is the JSON result
@@ -1991,9 +2017,9 @@ def run_phase25(dev, profile: bool) -> list:
           + json.dumps(times), flush=True)
     return entries
 
-# ---- phase 26: TPC-H lineitem's dates at SF10 ------------------------------
+# ---- phase 26: TPC-H lineitem's dates at SF5 -------------------------------
 
-P26_ROWS = 60_000_000              # SF10 lineitem, 59,986,052 rows rounded
+P26_ROWS = 30_000_000              # SF5 lineitem, rounded (cut from SF10)
 P26_ZONE = "America/New_York"
 P26_PARTS = ("year", "month", "day", "quarter", "doy", "dow", "dow_sunday0",
              "week", "week_iso", "year_iso", "hour", "minute", "second",
@@ -2045,7 +2071,7 @@ def _same(got, want, what: str) -> None:
 
 
 def run_phase26(dev, profile: bool) -> list:
-    """Phase 26: TPC-H SF10 lineitem's dates through ops/temporal.py, the
+    """Phase 26: TPC-H SF5 lineitem's dates through ops/temporal.py, the
     temporal arms of add and sub, a K1 filter_table and a K2 group_by.
     Returns the kernel entries and the calls `check_against_cpu` holds to
     the CPU route once every kernel site is measured."""
@@ -2061,7 +2087,7 @@ def run_phase26(dev, profile: bool) -> list:
     from arrow_tpu_torch.ops.filter import filter_table
     from arrow_tpu_torch.ops.groupby import AggSpec, group_by
     n = P26_ROWS
-    what = f"phase 26, TPC-H SF10 lineitem dates, {n:,} rows"
+    what = f"phase 26, TPC-H SF5 lineitem dates, {n:,} rows"
     zone_file = os.path.join("/usr/share/zoneinfo", *P26_ZONE.split("/"))
     zone = P26_ZONE if os.path.exists(zone_file) else "-05:00"
     print(f"{what}: tzdata probe: {zone_file} "
@@ -2217,8 +2243,8 @@ def check_against_cpu(checks) -> None:
         _same(got, fn(*[_cpu(a) for a in args]), f"{what} against the CPU "
               f"route")
         del got
-    print(f"{len(checks)} calls of phases 26-28 equal to the CPU route, "
-          f"bit for bit", flush=True)
+    print(f"{len(checks)} calls equal to the CPU route, bit for bit",
+          flush=True)
 
 
 # ---- phase 27: nested, decimal and interval layouts at config 2's size -----
@@ -2765,7 +2791,7 @@ def run_phase28(dev, profile: bool) -> list:
     entries.append(_entry(site, launches["compact"], err))
     del site, keep, arrays, k1_calls, ree
 
-    # struct and list keys at 1M rows (host comparator ranks)
+    # struct and list keys at P28_HOST_ROWS (host comparator ranks)
     k = P28_HOST_ROWS
     flag = table.column("l_returnflag").slice(0, k)
     stat = table.column("l_linestatus").slice(0, k)
@@ -2854,7 +2880,7 @@ def run_phase28(dev, profile: bool) -> list:
     print(f"{what}: list, struct, run-end (runs kept) and interval casts at "
           f"{CONFIG2_ROWS:,} rows on the card", flush=True)
 
-    # text casts at 1M rows (host parsing and formatting)
+    # text casts at P28_HOST_ROWS (host parsing and formatting)
     hc = p28_host_columns(table, g, dev)
     for name in ("date", "int64", "float64", "interval"):
         col = hc[name]
@@ -2932,11 +2958,638 @@ def run_phase28(dev, profile: bool) -> list:
                      for name, fn, *args in cpu_calls]
 
 
+# ---- phase 29: TPC-H SF10's string predicates ------------------------------
+
+P29_ROWS = {"part": 2_000_000, "supplier": 100_000, "customer": 1_500_000,
+            "orders": 15_000_000}          # TPC-H SF10 (spec 4.2.5)
+P29_REGEX_ROWS = 1_000_000         # regexp_match (cut: a Python list a row)
+P29_POOL_BYTES = 16 << 20          # the text pool comments are cut from
+
+# spec 4.2.3: P_NAME's 92 colours, P_TYPE's and P_CONTAINER's syllables
+P29_COLOURS = (
+    "almond antique aquamarine azure beige bisque black blanched blue blush "
+    "brown burlywood burnished chartreuse chiffon chocolate coral cornflower "
+    "cornsilk cream cyan dark deep dim dodger drab firebrick floral forest "
+    "frosted gainsboro ghost goldenrod green grey honeydew hot indian ivory "
+    "khaki lace lavender lawn lemon light lime linen magenta maroon medium "
+    "metallic midnight mint misty moccasin navajo navy olive orange orchid "
+    "pale papaya peach peru pink plum powder puff purple red rose rosy royal "
+    "saddle salmon sandy seashell sienna sky slate smoke snow spring steel "
+    "tan thistle tomato turquoise violet wheat white yellow").split()
+P29_TYPES = (("STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"),
+             ("ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"),
+             ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER"))
+P29_CONTAINERS = (("SM", "LG", "MED", "JUMBO", "WRAP"),
+                  ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"))
+
+
+def _weighted(spec: str):
+    """'word:weight ...' (underscores for spaces) -> (words, p)."""
+    pairs = [w.rsplit(":", 1) for w in spec.split()]
+    weights = np.array([float(k) for _, k in pairs])
+    return [w.replace("_", " ") for w, _ in pairs], weights / weights.sum()
+
+
+# spec 4.2.2.13's word classes, with weights as dbgen's dists.dss gives
+# them (written from the distribution file's published text)
+P29_GRAMMAR = {
+    "noun": _weighted(
+        "packages:40 requests:40 accounts:40 deposits:40 foxes:20 ideas:20 "
+        "theodolites:20 pinto_beans:20 instructions:20 dependencies:10 "
+        "excuses:10 platelets:10 asymptotes:10 courts:5 dolphins:5 "
+        "multipliers:1 sauternes:1 warthogs:1 frets:1 dinos:1 attainments:1 "
+        "somas:1 Tiresias:1 patterns:1 forges:1 braids:1 frays:1 "
+        "warhorses:1 dugouts:1 notornis:1 epitaphs:1 pearls:1 tithes:1 "
+        "waters:1 orbits:1 gifts:1 sheaves:1 depths:1 sentiments:1 decoys:1 "
+        "realms:1 pains:1 grouches:1 escapades:1 hockey_players:1"),
+    "verb": _weighted(
+        "sleep:20 wake:20 are:20 cajole:20 haggle:20 nag:10 use:10 boost:10 "
+        "affix:5 detect:5 integrate:5 maintain:1 nod:1 was:1 lose:1 "
+        "sublate:1 solve:1 thrash:1 promise:1 engage:1 hinder:1 print:1 "
+        "x-ray:1 breach:1 eat:1 grow:1 impress:1 mold:1 poach:1 serve:1 "
+        "run:1 dazzle:1 snooze:1 doze:1 unwind:1 kindle:1 play:1 hang:1 "
+        "believe:1 doubt:1"),
+    "adjective": _weighted(
+        "special:20 pending:20 unusual:20 express:20 furious:1 sly:1 "
+        "careful:1 blithe:1 quick:1 fluffy:1 slow:1 quiet:1 ruthless:1 "
+        "thin:1 close:1 dogged:1 daring:1 brave:1 stealthy:1 permanent:1 "
+        "enticing:1 idle:1 busy:1 regular:50 final:40 ironic:40 even:30 "
+        "bold:20 silent:10"),
+    "adverb": _weighted(
+        "sometimes:1 always:1 never:1 furiously:50 slyly:50 carefully:50 "
+        "blithely:40 quickly:30 fluffily:20 slowly:1 quietly:1 ruthlessly:1 "
+        "thinly:1 closely:1 doggedly:1 daringly:1 bravely:1 stealthily:1 "
+        "permanently:1 enticingly:1 idly:1 busily:1 regularly:1 finally:1 "
+        "ironically:1 evenly:1 boldly:1 silently:1"),
+    "preposition": _weighted(
+        "about:50 above:50 according_to:50 across:50 after:50 against:40 "
+        "along:40 alongside_of:30 among:30 around:20 at:10 atop:1 before:1 "
+        "behind:1 beneath:1 beside:1 besides:1 between:1 beyond:1 by:1 "
+        "despite:1 during:1 except:1 for:1 from:1 in_place_of:1 inside:1 "
+        "instead_of:1 into:1 near:1 of:1 on:1 outside:1 over:1 past:1 "
+        "since:1 through:1 throughout:1 to:1 toward:1 under:1 until:1 up:1 "
+        "upon:1 without:1 with:1 within:1"),
+    "auxiliary": _weighted(
+        "do:1 may:1 might:1 shall:1 will:1 would:1 can:1 could:1 should:1 "
+        "ought_to:1 must:1 will_have_to:1 shall_have_to:1 could_have_to:1 "
+        "should_have_to:1 must_have_to:1 need_to:1 try_to:1"),
+    "terminator": _weighted(".:50 ;:1 :::1 ?:1 !:1 --:1"),
+}
+# spec 4.2.2.14: sentence, noun phrase and verb phrase shapes (weights)
+P29_SENTENCES = (("NVT", 3), ("NVPT", 3), ("NVNT", 3), ("NPVNT", 1),
+                 ("NPVPT", 1))
+P29_NOUN_PHRASES = (("n", 10), ("jn", 20), ("j,jn", 10), ("djn", 50))
+P29_VERB_PHRASES = (("v", 30), ("xv", 1), ("vd", 40), ("xvd", 1))
+
+
+def tpch_text_pool(rng, nbytes: int) -> np.ndarray:
+    """dbgen's text pool (spec 4.2.2.13-14): sentences of the grammar,
+    space-separated, until `nbytes` bytes; comments are cut from it at
+    random offsets."""
+    g = {k: (w, p) for k, (w, p) in P29_GRAMMAR.items()}
+
+    def pick(kind, k):
+        words, p = g[kind]
+        return [words[i] for i in rng.choice(len(words), k, p=p)]
+
+    def shapes(table, k):
+        names = [s for s, _ in table]
+        w = np.array([x for _, x in table], float)
+        return [names[i] for i in rng.choice(len(names), k, p=w / w.sum())]
+
+    out, size = [], 0
+    batch = 4096
+    while size < nbytes:
+        sent = shapes(P29_SENTENCES, batch)
+        draws = {k: iter(pick(k, 8 * batch)) for k in g}
+        nps = iter(shapes(P29_NOUN_PHRASES, 4 * batch))
+        vps = iter(shapes(P29_VERB_PHRASES, 2 * batch))
+        phrase = {"n": "noun", "j": "adjective", "d": "adverb",
+                  "v": "verb", "x": "auxiliary"}
+
+        def render(shape):
+            words = []
+            for c in shape:
+                if c == ",":
+                    words[-1] += ","
+                else:
+                    words.append(next(draws[phrase[c]]))
+            return " ".join(words)
+        for s in sent:
+            parts = []
+            for c in s:
+                if c == "N":
+                    parts.append(render(next(nps)))
+                elif c == "V":
+                    parts.append(render(next(vps)))
+                elif c == "P":
+                    parts.append(next(draws["preposition"]) + " the "
+                                 + render(next(nps)))
+            text = " ".join(parts) + next(draws["terminator"]) + " "
+            out.append(text)
+            size += len(text)
+    return np.frombuffer("".join(out).encode()[:nbytes], np.uint8).copy()
+
+
+def _cut(pool: np.ndarray, starts: np.ndarray, lens: np.ndarray):
+    """(int32 offsets, bytes) of pool[starts[i]:starts[i] + lens[i]]:
+    rows of a sliding window over the pool, cut to their lengths, 1M
+    rows at a time."""
+    w = int(lens.max()) if len(lens) else 0
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    data = np.empty(int(offs[-1]), np.uint8)
+    win = np.lib.stride_tricks.sliding_window_view(
+        np.concatenate([pool, np.zeros(w, np.uint8)]), max(w, 1))
+    col = np.arange(max(w, 1))
+    for a in range(0, len(lens), 1 << 20):
+        b = min(a + (1 << 20), len(lens))
+        data[offs[a]:offs[b]] = win[starts[a:b]][col < lens[a:b, None]]
+    return offs.astype(np.int32), data
+
+
+def _join_tokens(ids: np.ndarray, words, sep: bytes = b" "):
+    """(int32 offsets, bytes) of each row's words, joined by `sep`:
+    ids (n, k) index `words`."""
+    table = [w.encode() for w in words] + [sep]
+    lens = np.array([len(w) for w in table], np.int64)
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    pool = np.frombuffer(b"".join(table), np.uint8)
+    n, k = ids.shape
+    tok = np.full((n, 2 * k - 1), len(table) - 1, np.int64)
+    tok[:, ::2] = ids
+    tok = tok.reshape(-1)
+    tl = lens[tok]
+    off, data = _cut(pool, starts[tok], tl)
+    rows = np.zeros(n + 1, np.int64)
+    np.cumsum(tl.reshape(n, -1).sum(1), out=rows[1:])
+    return rows.astype(np.int32), data
+
+
+def _distinct_draws(rng, n: int, k: int, m: int) -> np.ndarray:
+    """(n, k) draws from range(m), distinct within each row."""
+    ids = rng.integers(0, m, (n, k))
+    while True:
+        s = np.sort(ids, 1)
+        bad = (s[:, 1:] == s[:, :-1]).any(1)
+        if not bad.any():
+            return ids
+        ids[bad] = rng.integers(0, m, (int(bad.sum()), k))
+
+
+def _utf8(offs: np.ndarray, data: np.ndarray, large: bool = False):
+    import pyarrow as pa
+    t = pa.large_string() if large else pa.string()
+    return pa.Array.from_buffers(t, len(offs) - 1, [
+        None, pa.py_buffer(offs.astype(np.int64 if large else np.int32)),
+        pa.py_buffer(data)])
+
+
+def tpch_strings(rows: dict, pool_bytes: int, seed: int = SEED):
+    """TPC-H's part, supplier, customer and orders string columns by the
+    spec's rules (4.2.3; text 4.2.2.10-14), made on the host with numpy
+    from `seed`, as pyarrow tables; and the generator's integers, the
+    closed forms the calls are held to."""
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    pool = tpch_text_pool(rng, pool_bytes)
+
+    def text(n, lo, hi):
+        lens = rng.integers(lo, hi + 1, n)
+        return _cut(pool, rng.integers(0, len(pool) - lens), lens)
+
+    np_ = rows["part"]
+    colours = _distinct_draws(rng, np_, 5, len(P29_COLOURS))
+    syl = np.stack([rng.integers(0, len(s), np_) for s in P29_TYPES], 1)
+    cont = np.stack([rng.integers(0, len(s), np_) for s in P29_CONTAINERS],
+                    1)
+    mfgr, brand = rng.integers(1, 6, np_), rng.integers(1, 6, np_)
+    type_words = [w for s in P29_TYPES for w in s]
+    type_ids = syl + np.array([0, 6, 11])
+    cont_ids = cont + np.array([0, 5])
+    brand_b = np.frombuffer(b"Brand#00" * np_, np.uint8).reshape(np_, 8).copy()
+    brand_b[:, 6] += mfgr.astype(np.uint8)
+    brand_b[:, 7] += brand.astype(np.uint8)
+    part = pa.table({
+        "p_partkey": pa.array(np.arange(1, np_ + 1)),
+        "p_name": _utf8(*_join_tokens(colours, P29_COLOURS)),
+        "p_type": _utf8(*_join_tokens(type_ids, type_words)),
+        "p_brand": _utf8(np.arange(np_ + 1, dtype=np.int32) * 8,
+                         brand_b.reshape(-1)),
+        "p_container": _utf8(*_join_tokens(cont_ids, [w for s in
+                                                      P29_CONTAINERS
+                                                      for w in s]))})
+
+    ns = rows["supplier"]
+    soffs, sdata = text(ns, 25, 100)
+    k = max(ns // 2000, 1)                       # SF * 5 rows of each
+    marked = rng.choice(ns, 2 * k, replace=False)
+    for j, r in enumerate(marked):
+        tail = b"Complaints" if j < k else b"Recommends"
+        a, b = int(soffs[r]), int(soffs[r + 1])
+        gap = int(rng.integers(0, b - a - 18 + 1))
+        at_ = a + int(rng.integers(0, b - a - 18 - gap + 1))
+        sdata[at_:at_ + 8] = np.frombuffer(b"Customer", np.uint8)
+        sdata[at_ + 8 + gap:at_ + 18 + gap] = np.frombuffer(tail, np.uint8)
+    supplier = pa.table({"s_suppkey": pa.array(np.arange(1, ns + 1)),
+                         "s_comment": _utf8(soffs, sdata)})
+
+    nc = rows["customer"]
+    nation = rng.integers(0, 25, nc)
+    fields = [(nation + 10, 2), (rng.integers(100, 1000, nc), 3),
+              (rng.integers(100, 1000, nc), 3),
+              (rng.integers(1000, 10000, nc), 4)]
+    phone = np.full((nc, 15), ord("-"), np.uint8)      # CC-LLL-LLL-LLLL
+    at_ = 0
+    for v, width in fields:
+        for j in range(width):
+            phone[:, at_ + j] = ord("0") + v // 10 ** (width - 1 - j) % 10
+        at_ += width + 1
+    phone = phone.reshape(-1)
+    acct = rng.integers(-99_999, 1_000_000, nc)
+    customer = pa.table({
+        "c_custkey": pa.array(np.arange(1, nc + 1)),
+        "c_phone": _utf8(np.arange(nc + 1, dtype=np.int32) * 15, phone),
+        "c_acctbal": pa.array(acct)})
+
+    no = rows["orders"]
+    i = np.arange(no)
+    k3 = rng.integers(0, 2 * nc // 3, no)        # custkeys % 3 != 0
+    ooffs, odata = text(no, 19, 78)
+    orders = pa.table({
+        "o_orderkey": pa.array((i // 8) * 32 + i % 8 + 1),
+        "o_custkey": pa.array(3 * (k3 // 2) + 1 + k3 % 2),
+        "o_comment": _utf8(ooffs, odata)})
+    truth = {"colours": colours, "syllables": syl, "mfgr": mfgr,
+             "brand": brand, "nation": nation, "acctbal": acct,
+             "complaints": np.sort(marked[:k])}
+    return {"part": part, "supplier": supplier, "customer": customer,
+            "orders": orders}, truth
+
+
+class CardMeter:
+    """Phase 29's timing and launch counting on the card: device calls by
+    CUDA-event medians of 5, host-bound calls by one run (`once`), each
+    call's first run inside op_timer; launches with the counts set to 0
+    just before.  `peak_gib()` is the phase's peak device memory: each
+    count's reset also resets the card's peak, so the peak is read before
+    every reset and kept."""
+
+    def __init__(self, profile: bool, what: str):
+        self.profile, self.what, self.times = profile, what, {}
+        self.peak = 0
+
+    def peak_gib(self) -> float:
+        self.peak = max(self.peak, torch.cuda.max_memory_allocated())
+        return self.peak / 2 ** 30
+
+    def timed(self, name, fn):
+        from arrow_tpu_torch.utils.trace import op_timer
+        with op_timer(name):
+            out = fn()
+        self.times[name] = time_ms(fn)
+        if self.profile:
+            profile_call(f"{self.what} {name}", fn)
+        return out
+
+    def once(self, name, fn):
+        from arrow_tpu_torch.utils.trace import op_timer
+        with op_timer(name):
+            out, self.times[name] = once_ms(fn)
+        return out
+
+    def counted(self, name, must, fn, *watches, exactly=None):
+        """fn's result, the launch counts over it and each watched
+        function's recorded calls; `must` launched at least once, and
+        `exactly` times where that is given."""
+        self.peak_gib()
+        _reset_counts()
+        with contextlib.ExitStack() as stack:
+            calls = [stack.enter_context(watch(f, m)) for f, m in watches]
+            out = fn()
+        launches = _read_counts(f"{self.what} {name}", must)
+        if exactly is not None and launches[must] != exactly:
+            raise AssertionError(f"{self.what} {name}: {launches[must]} "
+                                 f"{must} launches, not {exactly}")
+        return out, launches, calls
+
+
+def _same_arrow(got, want, what: str) -> None:
+    """A port column, read back through pyarrow, equal to pyarrow's."""
+    import pyarrow as pa
+    from arrow_tpu_torch.io.interop import column_to_pyarrow
+    if isinstance(want, pa.ChunkedArray):
+        want = want.combine_chunks()
+    ours = column_to_pyarrow(got)
+    if ours.type != want.type or not ours.equals(want):
+        raise AssertionError(f"{what}: differs from pyarrow.compute")
+
+
+def _share(mask) -> float:
+    return float(mask.values.to(torch.float64).mean())
+
+
+def p29_calls(tabs: dict, src: dict, truth: dict, meter, regex_rows: int):
+    """Phase 29's calls on the port tables `tabs` (made from the pyarrow
+    tables `src`), each held to pyarrow.compute and to its closed form;
+    returns (the K1 and K2 calls the sites take, their launch counts, the
+    calls `check_against_cpu` holds to the CPU route, the kept shares)."""
+    import pyarrow as pa
+    import pyarrow.compute as pac
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.table import Table
+    from arrow_tpu_torch.ops import cast as pc, cmp, strings as ps
+    from arrow_tpu_torch.ops.concat import concat
+    from arrow_tpu_torch.ops.filter import filter_table
+    from arrow_tpu_torch.ops.groupby import AggSpec, group_by
+    from arrow_tpu_torch.ops.take import take
+    from arrow_tpu_torch.utils.display import pretty_format_table
+    part, supp, cust, orders = (tabs[k] for k in ("part", "supplier",
+                                                  "customer", "orders"))
+    sp, ss, sc, so = (src[k] for k in ("part", "supplier", "customer",
+                                       "orders"))
+    cpu_calls, shares, sites = [], {}, {}
+    dev = part.column("p_name").device
+
+    def mask_call(name, fn, col, arg, want, closed=None):
+        got = meter.once(name, lambda: fn(col, arg))
+        _same_arrow(got, want, name)
+        if closed is not None and not np.array_equal(
+                got.values.cpu().numpy(), closed):
+            raise AssertionError(f"{name}: differs from the generator")
+        shares[name] = _share(got)
+        cpu_calls.append((name, fn, col, arg))
+        return got
+
+    # Q9, Q20, Q14, Q2 over part
+    green = P29_COLOURS.index("green")
+    has_green = (truth["colours"] == green).any(1)
+    pname, ptype = part.column("p_name"), part.column("p_type")
+    m9 = mask_call("Q9 contains(p_name, green)", ps.contains, pname, "green",
+                   pac.match_substring(sp["p_name"], "green"), has_green)
+    m9b = mask_call("Q9 like(p_name, %green%)", ps.like, pname, "%green%",
+                    pac.match_like(sp["p_name"], "%green%"), has_green)
+    if not torch.equal(m9.values, m9b.values):
+        raise AssertionError("Q9: like %green% differs from contains green")
+    mask_call("Q20 starts_with(p_name, forest)", ps.starts_with, pname,
+              "forest", pac.starts_with(sp["p_name"], "forest"),
+              truth["colours"][:, 0] == P29_COLOURS.index("forest"))
+    syl = truth["syllables"]
+    mask_call("Q14 like(p_type, PROMO%)", ps.like, ptype, "PROMO%",
+              pac.match_like(sp["p_type"], "PROMO%"), syl[:, 0] == 5)
+    mask_call("Q2 ends_with(p_type, BRASS)", ps.ends_with, ptype, "BRASS",
+              pac.ends_with(sp["p_type"], "BRASS"), syl[:, 2] == 2)
+
+    # Q16: the part and supplier predicates
+    mask_call("Q16 nlike(p_type, MEDIUM POLISHED%)", ps.nlike, ptype,
+              "MEDIUM POLISHED%",
+              pac.invert(pac.match_like(sp["p_type"], "MEDIUM POLISHED%")),
+              ~((syl[:, 0] == 2) & (syl[:, 1] == 3)))
+    mask_call("Q16 neq(p_brand, Brand#45)", cmp.neq, part.column("p_brand"),
+              "Brand#45", pac.not_equal(sp["p_brand"], "Brand#45"),
+              ~((truth["mfgr"] == 4) & (truth["brand"] == 5)))
+    complaints = np.zeros(len(ss), bool)
+    complaints[truth["complaints"]] = True
+    mask_call("Q16 like(s_comment, %Customer%Complaints%)", ps.like,
+              supp.column("s_comment"), "%Customer%Complaints%",
+              pac.match_like(ss["s_comment"], "%Customer%Complaints%"),
+              complaints)
+
+    # Q13 over orders: the utf8 comment and its other layouts
+    com = orders.column("o_comment")
+    pat = "%special%requests%"
+    want13 = pac.invert(pac.match_like(so["o_comment"], pat))
+    m13 = mask_call("Q13 nlike(o_comment)", ps.nlike, com, pat, want13)
+    mask_call("Q13 regexp_is_match(o_comment, special.*requests)",
+              ps.regexp_is_match, com, "special.*requests",
+              pac.match_substring_regex(so["o_comment"], "special.*requests"),
+              ~m13.values.cpu().numpy())
+    mask_call("Q13 ilike(o_comment, %SPECIAL%REQUESTS%)", ps.ilike, com,
+              "%SPECIAL%REQUESTS%",
+              pac.match_like(so["o_comment"], "%SPECIAL%REQUESTS%",
+                             ignore_case=True), ~m13.values.cpu().numpy())
+    layouts = {}
+    for name in ("large_utf8", "binary", "utf8_view"):
+        to = getattr(dt, name)
+        layouts[name] = meter.timed(f"cast o_comment -> {name}",
+                                    lambda to=to: pc.cast(com, to))
+        cpu_calls.append((f"cast o_comment -> {name}", pc.cast, com, to))
+        got = meter.once(f"Q13 nlike(o_comment as {name})",
+                         lambda c=layouts[name]: ps.nlike(c, pat))
+        if not torch.equal(got.values, m13.values) or got.validity is not None:
+            raise AssertionError(f"Q13 nlike over the {name} cast differs "
+                                 f"from the utf8 result")
+        cpu_calls.append((f"Q13 nlike(o_comment as {name})", ps.nlike,
+                          layouts[name], pat))
+    large = layouts["large_utf8"]
+    if large.offsets.dtype != torch.int64:
+        raise AssertionError("the large_utf8 cast lost its int64 offsets")
+    ftab = Table([orders.column("o_orderkey"), orders.column("o_custkey"),
+                  large], dt.Schema((dt.Field("o_orderkey", dt.int64, False),
+                                     dt.Field("o_custkey", dt.int64, False),
+                                     dt.Field("o_comment", dt.large_utf8,
+                                              False))))
+    kept, launches, (k1,) = meter.counted(
+        "Q13 filter_table(orders, nlike)", "compact",
+        lambda: filter_table(ftab, m13), ("compact", "filter"), exactly=1)
+    keep_np = m13.values.cpu().numpy()
+    want_t = so.filter(pac.invert(pac.match_like(so["o_comment"], pat)))
+    for name in ("o_orderkey", "o_custkey"):
+        _same_arrow(kept.column(name), want_t[name].combine_chunks(),
+                    f"Q13 filter_table {name}")
+    _same_arrow(kept.column("o_comment"), want_t["o_comment"].combine_chunks(
+    ).cast("large_string"), "Q13 filter_table o_comment")
+    meter.timed("Q13 filter_table(orders, nlike)",
+                lambda: filter_table(ftab, m13))
+    cpu_calls.append(("Q13 filter_table(orders, nlike)", filter_table, ftab,
+                      m13))
+    sites["filter"] = (k1[0], launches)
+    aggs = [AggSpec("o_orderkey", "count_all")]
+    counts, launches, (k1,) = meter.counted(
+        "Q13 group_by(o_custkey)", "compact",
+        lambda: group_by(kept, ["o_custkey"], aggs), ("compact", "groupby"))
+    cust_np = so["o_custkey"].to_numpy()[keep_np]
+    bins = np.bincount(cust_np)
+    present = np.nonzero(bins)[0]
+    if not np.array_equal(counts.column("o_custkey").values.cpu().numpy(),
+                          present) or not np.array_equal(
+            counts.column("o_orderkey_count_all").values.cpu().numpy(),
+            bins[present]):
+        raise AssertionError("Q13 group_by(o_custkey) differs from bincount "
+                             "over the kept custkeys")
+    meter.timed("Q13 group_by(o_custkey)",
+                lambda: group_by(kept, ["o_custkey"], aggs))
+    cpu_calls.append(("Q13 group_by(o_custkey)", group_by, kept,
+                      ["o_custkey"], aggs))
+    sites["run_starts"] = (k1[0], launches)
+
+    # Q22: the country code, its dictionary and a group-by on it (K2)
+    phone = cust.column("c_phone")
+    cc = meter.once("Q22 substring(c_phone, 0, 2)",
+                    lambda: ps.substring(phone, 0, 2))
+    _same_arrow(cc, pac.utf8_slice_codeunits(sc["c_phone"], 0, 2),
+                "Q22 substring")
+    cpu_calls.append(("Q22 substring(c_phone, 0, 2)", ps.substring, phone, 0,
+                      2))
+    code = meter.once("Q22 dictionary_encode(cntrycode)",
+                      lambda: ps.dictionary_encode(cc))
+    cpu_calls.append(("Q22 dictionary_encode(cntrycode)",
+                      ps.dictionary_encode, cc))
+    if not np.array_equal(code.codes.cpu().numpy(), truth["nation"]):
+        raise AssertionError("Q22: the codes differ from the nation keys")
+    qtab = Table([code, cust.column("c_acctbal")], dt.Schema((
+        dt.Field("cntrycode", code.dtype, False),
+        dt.Field("c_acctbal", dt.int64, False))))
+    qaggs = [AggSpec("c_acctbal", "count_all"), AggSpec("c_acctbal", "sum")]
+    res, launches, (k2,) = meter.counted(
+        "Q22 group_by(cntrycode)", "grouped_aggregate",
+        lambda: group_by(qtab, ["cntrycode"], qaggs),
+        ("grouped_aggregate", "groupby"))
+    nat, acct = truth["nation"], truth["acctbal"]
+    sums = np.zeros(25, np.int64)
+    np.add.at(sums, nat, acct)
+    if res.column("cntrycode").to_pylist() != [f"{c + 10}" for c in
+                                               range(25)] or \
+            not np.array_equal(res.column("c_acctbal_count_all").values.cpu()
+                               .numpy(), np.bincount(nat, minlength=25)) or \
+            not np.array_equal(res.column("c_acctbal_sum").values.cpu()
+                               .numpy(), sums):
+        raise AssertionError("Q22 group_by differs from bincount / add.at "
+                             "over the nation keys")
+    meter.timed("Q22 group_by(cntrycode)",
+                lambda: group_by(qtab, ["cntrycode"], qaggs))
+    cpu_calls.append(("Q22 group_by(cntrycode)", group_by, qtab,
+                      ["cntrycode"], qaggs))
+    sites["dictionary"] = (k2[0], launches)
+    print(f"phase 29 Q22 (25 country codes):\n" + pretty_format_table(res),
+          flush=True)
+
+    # transforms, lengths, concat and take
+    for name, fn, wantf in (("upper", ps.upper, pac.utf8_upper),
+                            ("lower", ps.lower, pac.utf8_lower)):
+        got = meter.once(f"{name}(p_type)", lambda fn=fn: fn(ptype))
+        _same_arrow(got, wantf(sp["p_type"]), f"{name}(p_type)")
+        cpu_calls.append((f"{name}(p_type)", fn, ptype))
+    for name, fn, wantf in (
+            ("length", ps.length, pac.utf8_length),
+            ("octet_length", ps.octet_length, pac.binary_length),
+            ("bit_length", ps.bit_length,
+             lambda a: pac.multiply(pac.binary_length(a),
+                                    pa.scalar(8, pa.int32())))):
+        got = meter.timed(f"{name}(o_comment)", lambda fn=fn: fn(com))
+        _same_arrow(got, wantf(so["o_comment"]), f"{name}(o_comment)")
+        cpu_calls.append((f"{name}(o_comment)", fn, com))
+    brand, container = part.column("p_brand"), part.column("p_container")
+    got = meter.once("concat_elements(p_brand, p_container)",
+                     lambda: ps.concat_elements(brand, container))
+    _same_arrow(got, pac.binary_join_element_wise(
+        sp["p_brand"], sp["p_container"], ""), "concat_elements")
+    cpu_calls.append(("concat_elements(p_brand, p_container)",
+                      ps.concat_elements, brand, container))
+    n = len(large)
+    cuts = [0, n // 7, n // 2, n - n // 5, n]
+    slices = [large.slice(a, b - a) for a, b in zip(cuts, cuts[1:])]
+    whole = meter.timed("concat of four o_comment slices (large_utf8)",
+                        lambda: concat(slices))
+    if not (torch.equal(whole.offsets, large.offsets)
+            and torch.equal(whole.data, large.data)):
+        raise AssertionError("concat of the slices differs from the whole")
+    cpu_calls.append(("concat of four o_comment slices (large_utf8)",
+                      lambda *s: concat(list(s)), *slices))
+    perm = torch.from_numpy(np.random.default_rng(SEED).permutation(n)).to(
+        dev)
+    got = meter.timed("take(o_comment large_utf8, permutation)",
+                      lambda: take(large, perm))
+    _same_arrow(got, pac.take(so["o_comment"], perm.cpu().numpy()
+                              ).combine_chunks().cast("large_string"),
+                "take by a permutation")
+    cpu_calls.append(("take(o_comment large_utf8, permutation)", take, large,
+                      perm))
+    sub = ptype.slice(0, min(regex_rows, len(ptype)))
+    rx = "(\\w+) (\\w+) (\\w+)"
+    got = meter.once(f"regexp_match(p_type, {rx}) ({len(sub):,} rows)",
+                     lambda: ps.regexp_match(sub, rx))
+    if got.to_pylist() != [s.split(" ") for s in sub.to_pylist()]:
+        raise AssertionError("regexp_match differs from the type's words")
+    cpu_calls.append((f"regexp_match(p_type) ({len(sub):,} rows)",
+                      ps.regexp_match, sub, rx))
+    return sites, cpu_calls, shares
+
+
+def run_phase29(dev, profile: bool):
+    """Phase 29: TPC-H SF10's LIKE, substring and case predicates over
+    part, supplier, customer and orders, brought onto the card through
+    pyarrow.  Returns the kernel entries and the calls held to the CPU
+    route."""
+    from arrow_tpu_torch.io.interop import table_from_pyarrow, \
+        table_to_pyarrow
+    from arrow_tpu_torch.ops import strings as ps
+    from arrow_tpu_torch.utils.trace import reset_timings, timings
+    what = "phase 29, TPC-H SF10 strings"
+    t0 = time.perf_counter()
+    src, truth = tpch_strings(P29_ROWS, P29_POOL_BYTES)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    tabs, load = {}, {}
+    for name, t in src.items():
+        out, load[name] = once_ms(lambda t=t: table_from_pyarrow(t, dev))
+        if not table_to_pyarrow(out).equals(t.combine_chunks().to_batches(
+        )[0]):
+            raise AssertionError(f"{what}: {name} does not round-trip")
+        tabs[name] = out
+    com = tabs["orders"].column("o_comment")
+    print(f"{what}: {', '.join(f'{k} {v.num_rows:,}' for k, v in src.items())}"
+          f" rows made on the host in {gen_s:.1f} s; o_comment "
+          f"{com.data.numel():,} bytes; table_from_pyarrow (ms): "
+          f"{json.dumps(load)}; each round-trips through table_to_pyarrow",
+          flush=True)
+    _, copy_ms = once_ms(lambda: ps._host_buffers(com))
+    meter = CardMeter(profile, what)
+    reset_timings()
+    sites, cpu_calls, shares = p29_calls(tabs, src, truth, meter,
+                                         P29_REGEX_ROWS)
+    print(f"{what}: every call equal to pyarrow.compute and its closed form;"
+          f" kept shares " + json.dumps(shares), flush=True)
+    print(f"{what}: op_timer's first runs:\n{timings.report()}", flush=True)
+    print(f"{what}: peak device memory {meter.peak_gib():.2f} GiB "
+          f"(loading included); o_comment's "
+          f"copy to the host {copy_ms:.1f} ms; times (CUDA events: device "
+          f"calls median of 5, host-bound calls one run; ms): "
+          + json.dumps(meter.times), flush=True)
+    entries = []
+    (args, kwargs), launches = sites["filter"]
+    keep, arrays = args[:2]
+    site = _compact_site(
+        f"phase 29 Q13 filter_table of orders with a large_utf8 comment, "
+        f"{keep.shape[0]:,} rows, {float(keep.float().mean()):.2%} kept",
+        keep, tuple(arrays), kwargs.get("out_cap"),
+        lambda: (tuple(a[keep] for a in arrays), keep.nonzero()),
+        kwargs.get("positions"))
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    entries.append(_entry(site, launches["compact"], err))
+    (args, kwargs), launches = sites["run_starts"]
+    keep, arrays = args[:2]
+    site = _compact_site(
+        f"phase 29 Q13 group_by(o_custkey) sort-plan run starts, "
+        f"{keep.shape[0]:,} rows, {int(keep.sum()):,} kept", keep,
+        tuple(arrays), kwargs.get("out_cap"),
+        lambda: (arrays[0][keep], keep.nonzero()), kwargs.get("positions"))
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    entries.append(_entry(site, launches["compact"], err))
+    call, launches = sites["dictionary"]
+    site = _k2_site(f"phase 29 Q22 dictionary plan, "
+                    f"{len(call[0][0]):,} rows x {call[0][1]} codes", call)
+    err = check_site(site, same_aggregates, f"K2 at {site.call_site}")
+    entries.append(_entry(site, launches["grouped_aggregate"], err))
+    return entries, [(f"{what}: {name}", fn, args)
+                     for name, fn, *args in cpu_calls]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace the group-bys, the joins, configs 2 "
-                         "and 3 and phases 24-28 with torch.profiler")
+                         "and 3 and phases 24-29 with torch.profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3013,22 +3666,43 @@ def main(argv=None) -> int:
                      lambda: group_by(table, ["k"], aggs))
     del x, y, k2_site, table, out
 
-    entries += run_k1_sweep(dev)
-    entries.append(run_sort_plan_k2(dev))
-    entries.append(run_config4_1k(dev, args.profile))
-    entries.append(run_config4_10m(dev, args.profile))
-    entries += run_config5_resident(dev, args.profile)
-    run_config5_stream(dev, args.profile)
-    entries.append(run_config2(dev, args.profile))
-    entries += run_config3(dev, args.profile)
-    entries += run_phase24(dev, args.profile)
-    entries += run_phase25(dev, args.profile)
-    e26, checks26 = run_phase26(dev, args.profile)
-    e27, checks27 = run_phase27(dev, args.profile)
-    e28, checks28 = run_phase28(dev, args.profile)
-    entries += e26 + e27 + e28
-    check_against_cpu(checks26 + checks27 + checks28)
-    del checks26, checks27, checks28
+    laps = {"steps 1-9": time.perf_counter() - t_start}
+
+    def lap(name, run):
+        t0 = time.perf_counter()
+        out = run()
+        laps[name] = time.perf_counter() - t0
+        return out
+
+    entries += lap("K1 sweep (step 10)", lambda: run_k1_sweep(dev))
+    entries.append(lap("sort plan K2 (step 11)",
+                       lambda: run_sort_plan_k2(dev)))
+    entries.append(lap("config 4 1K (step 12)",
+                       lambda: run_config4_1k(dev, args.profile)))
+    entries.append(lap("config 4 10M (steps 13-15)",
+                       lambda: run_config4_10m(dev, args.profile)))
+    entries += lap("config 5 resident (steps 16-18)",
+                   lambda: run_config5_resident(dev, args.profile))
+    lap("config 5 streamed (step 19)",
+        lambda: run_config5_stream(dev, args.profile))
+    entries.append(lap("config 2 (steps 20-21)",
+                       lambda: run_config2(dev, args.profile)))
+    entries += lap("config 3 (steps 22-23)",
+                   lambda: run_config3(dev, args.profile))
+    entries += lap("phase 24", lambda: run_phase24(dev, args.profile))
+    entries += lap("phase 25", lambda: run_phase25(dev, args.profile))
+    e26, checks26 = lap("phase 26", lambda: run_phase26(dev, args.profile))
+    e27, checks27 = lap("phase 27", lambda: run_phase27(dev, args.profile))
+    e28, checks28 = lap("phase 28", lambda: run_phase28(dev, args.profile))
+    e29, checks29 = lap("phase 29", lambda: run_phase29(dev, args.profile))
+    entries += e26 + e27 + e28 + e29
+    for name, checks in (("phase 26", checks26), ("phase 27", checks27),
+                         ("phase 28", checks28), ("phase 29", checks29)):
+        lap(f"{name}'s CPU route", lambda checks=checks:
+            check_against_cpu(checks))
+    print("seconds by step (host clock): " + json.dumps(
+        {k: round(v, 1) for k, v in laps.items()}), flush=True)
+    del checks26, checks27, checks28, checks29
 
     sources = {
         "compact": {"route": "cuda",

@@ -262,11 +262,15 @@ def test_import_leaves_jax_out():
 
 
 def test_port_sources_import_no_reference():
-    pat = re.compile(r"^\s*(import|from) (jax|arrow_tpu\b|pyarrow)", re.M)
+    """No jax and no arrow_tpu anywhere; pyarrow only inside the
+    functions that use it (interop), never at a module's top level."""
+    pat = re.compile(r"^\s*(import|from) (jax|arrow_tpu\b)", re.M)
+    top = re.compile(r"^(import|from) pyarrow", re.M)
     files = sorted((REPO / "arrow_tpu_torch").rglob("*.py"))
     assert files
     for f in files:
         assert not pat.search(f.read_text()), f
+        assert not top.search(f.read_text()), f
 
 
 def test_slice_on_cuda_matches_cpu(cuda_device, rng):

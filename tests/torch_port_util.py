@@ -337,7 +337,13 @@ def buffers(col) -> dict:
         out["codes"] = _bits_list(col.codes)
         out["dictionary"] = buffers(col.values)
     elif kind == "StringColumn":
-        out["offsets"] = offsets(col.offsets)
+        # the offsets at the type's width, as pyarrow lays them out and
+        # the port's constructor holds them; the reference keeps a
+        # source's width through a retag and writes int32 under large
+        # types at times (ROADMAP C14)
+        large = col.dtype.name in ("large_utf8", "large_binary")
+        out["offsets"] = ("int64" if large else "int32",
+                          offsets(col.offsets)[1])
         out["data"] = _host(col.data).tolist()
     elif kind in ("ListColumn", "MapColumn"):
         out["offsets"] = offsets(col.offsets)
