@@ -72,6 +72,13 @@ class Column:
     def to_pylist(self) -> list:
         raise NotImplementedError
 
+    def __arrow_c_array__(self, requested_schema=None):
+        """The Arrow PyCapsule protocol (io/cdata.py;
+        arrow_tpu/core/column.py:53): `pa.array(col)` takes the column,
+        its buffers copied to the host once."""
+        from ..io.cdata import export_column
+        return export_column(self)
+
     def to_pyarrow(self):
         """The column as a pyarrow array (io/interop.py)."""
         from ..io.interop import column_to_pyarrow
@@ -161,10 +168,15 @@ class PrimitiveColumn(Column):
         return out
 
 
+# exact for every decimal256 (76 digits): the default context rounds
+# past 28 digits
+_EXACT = __import__("decimal").Context(prec=100)
+
+
 def _decimal_value(unscaled: int, scale: int):
     """The Decimal of an unscaled integer, as pyarrow lists decimals."""
     from decimal import Decimal
-    return Decimal(unscaled).scaleb(-scale)
+    return Decimal(unscaled).scaleb(-scale, _EXACT)
 
 
 def offset_dtype(d: dt.DataType) -> torch.dtype:
@@ -632,7 +644,7 @@ def _unscaled(v, scale: int) -> int:
     import decimal
     if not isinstance(v, decimal.Decimal):
         return int(v) * 10 ** scale
-    scaled = v.scaleb(scale)
+    scaled = v.scaleb(scale, _EXACT)
     if scaled != scaled.to_integral_value():
         raise ArrowInvalid(f"{v} does not fit scale {scale}")
     return int(scaled)

@@ -68,6 +68,19 @@ class Table:
         from ..io.interop import table_from_pyarrow
         return table_from_pyarrow(batch, device)
 
+    def __arrow_c_array__(self, requested_schema=None):
+        """The Arrow PyCapsule protocol: the table as a struct array (the
+        RecordBatch convention), so `pa.record_batch(t)` takes it
+        (io/cdata.py; arrow_tpu/core/table.py:150-160)."""
+        from ..io.cdata import export_table
+        return export_table(self)
+
+    def __arrow_c_stream__(self, requested_schema=None):
+        """The PyCapsule stream protocol: `pa.table(t)` takes the table
+        as a stream of one batch."""
+        from ..io.cdata import export_stream
+        return export_stream([self])
+
     def to_pyarrow(self):
         """The table as a pyarrow RecordBatch (io/interop.py)."""
         from ..io.interop import table_to_pyarrow

@@ -11,19 +11,17 @@ oracle of Arrow semantics the tests and chip_smoke.py hold the port to.
     metadata rides the schema, which is how the extension types of
     dtypes.py travel.
   - `column_to_pyarrow(col)` / `table_to_pyarrow(table)` copy each
-    tensor to the host once and build the pyarrow array from its
-    buffers where the reference does.
+    column to the host once (`hostio.to_host`) and build the pyarrow
+    array from its buffers where the reference does.
 pyarrow is imported inside the functions: `import arrow_tpu_torch` does
 not need it.
 """
 
 from __future__ import annotations
 
-import warnings
 from typing import Optional
 
 import numpy as np
-import torch
 
 from .. import dtypes as dt
 from ..config import DeviceLike, resolve_device
@@ -32,6 +30,8 @@ from ..core.column import (Column, DictionaryColumn, ListColumn, NullColumn,
                            from_numpy)
 from ..core.table import Table
 from ..errors import ArrowNotImplementedError
+from .hostio import host, to_host
+from .hostio import tensor as _tensor
 
 __all__ = ["column_from_pyarrow", "column_to_pyarrow", "table_from_pyarrow",
            "table_to_pyarrow", "dtype_from_pyarrow", "dtype_to_pyarrow"]
@@ -175,16 +175,6 @@ def dtype_to_pyarrow(d: dt.DataType):
 
 # ---- pyarrow -> device (interop.py:203-404) --------------------------------
 
-def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array (maybe a read-only view of a pyarrow buffer) as a
-    tensor on `device`: one copy either way."""
-    if device.type == "cpu":
-        return torch.from_numpy(np.array(a))
-    with warnings.catch_warnings():       # read-only: copied just below
-        warnings.simplefilter("ignore", UserWarning)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-
 def _raw(a, i: int, np_dtype, count: int) -> np.ndarray:
     """The first `count` items of buffer `i` (a read-only view)."""
     return np.frombuffer(a.buffers()[i], np_dtype)[:count]
@@ -298,25 +288,26 @@ def column_from_pyarrow(arr, device: DeviceLike) -> Column:
 
 # ---- device -> pyarrow (interop.py:409-520) --------------------------------
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
-
-
 def _vbuf(col):
     """The validity as a pyarrow bitmap buffer, or None."""
     import pyarrow as pa
     if col.validity is None:
         return None
-    return pa.py_buffer(np.packbits(_host(col.validity), bitorder="little"))
+    return pa.py_buffer(np.packbits(host(col.validity), bitorder="little"))
 
 
 def _mask_arg(col):
-    return None if col.validity is None else ~_host(col.validity)
+    return None if col.validity is None else ~host(col.validity)
 
 
 def column_to_pyarrow(col: Column):
     """A port column as a pyarrow array: each tensor copied to the host
     once."""
+    return _to_pyarrow(to_host(col))
+
+
+def _to_pyarrow(col: Column):
+    """column_to_pyarrow of a host column."""
     import pyarrow as pa
     from ..core import nested as nd
     pa_type = dtype_to_pyarrow(col.dtype)
@@ -326,9 +317,9 @@ def column_to_pyarrow(col: Column):
     if isinstance(col, PrimitiveColumn):
         if col.dtype.is_decimal:
             return pa.Array.from_buffers(pa_type, len(col), [
-                _vbuf(col), buf(_host(col.values))])
+                _vbuf(col), buf(host(col.values))])
         if col.dtype.is_temporal:
-            return pa.array(_host(col.values), mask=_mask_arg(col)) \
+            return pa.array(host(col.values), mask=_mask_arg(col)) \
                 .cast(pa_type)
         return pa.array(col.to_numpy(), type=pa_type, mask=_mask_arg(col))
     if isinstance(col, StringColumn):
@@ -336,32 +327,32 @@ def column_to_pyarrow(col: Column):
         storage = (pa.string() if col.dtype.is_string else pa.binary()) \
             if view else pa_type
         out = pa.Array.from_buffers(storage, len(col), [
-            _vbuf(col), buf(_host(col.offsets)), buf(_host(col.data))])
+            _vbuf(col), buf(host(col.offsets)), buf(host(col.data))])
         return out.cast(pa_type) if view else out
     if isinstance(col, DictionaryColumn):
-        codes = pa.array(_host(col.codes).view(
+        codes = pa.array(host(col.codes).view(
             col.dtype.index_type.to_numpy()), mask=_mask_arg(col))
         return pa.DictionaryArray.from_arrays(
-            codes, column_to_pyarrow(col.values),
+            codes, _to_pyarrow(col.values),
             ordered=bool(col.dtype.ordered))
     if isinstance(col, nd.ListViewColumn):
         large = col.dtype.name == "large_list_view"
         m = _mask_arg(col)
         return (pa.LargeListViewArray if large else pa.ListViewArray) \
-            .from_arrays(_host(col.offsets), _host(col.sizes),
-                         column_to_pyarrow(col.child),
+            .from_arrays(host(col.offsets), host(col.sizes),
+                         _to_pyarrow(col.child),
                          mask=None if m is None else pa.array(m))
     if isinstance(col, ListColumn):
         large = col.dtype.name == "large_list"
-        child = column_to_pyarrow(col.child)
+        child = _to_pyarrow(col.child)
         out = (pa.LargeListArray if large else pa.ListArray).from_arrays(
-            pa.array(_host(col.offsets)), child)
+            pa.array(host(col.offsets)), child)
         if col.validity is not None:
             out = pa.Array.from_buffers(out.type, len(col), [
                 _vbuf(col), out.buffers()[1]], children=[child])
         return out
     if isinstance(col, StructColumn):
-        children = [column_to_pyarrow(c) for c in col.children]
+        children = [_to_pyarrow(c) for c in col.children]
         out = pa.StructArray.from_arrays(children,
                                          [f.name for f in col.fields])
         if col.validity is not None:
@@ -370,38 +361,38 @@ def column_to_pyarrow(col: Column):
         return out
     if isinstance(col, nd.FixedSizeBinaryColumn):
         return pa.Array.from_buffers(pa_type, len(col), [
-            _vbuf(col), buf(_host(col.data))])
+            _vbuf(col), buf(host(col.data))])
     if isinstance(col, nd.DecimalColumn):
         return pa.Array.from_buffers(pa_type, len(col), [
-            _vbuf(col), buf(_host(col.limbs))])
+            _vbuf(col), buf(host(col.limbs))])
     if isinstance(col, nd.IntervalMDNColumn):
         raw = np.zeros(len(col), np.dtype([("m", "<i4"), ("d", "<i4"),
                                            ("n", "<i8")]))
-        raw["m"], raw["d"], raw["n"] = (_host(col.months), _host(col.days),
-                                        _host(col.nanos))
+        raw["m"], raw["d"], raw["n"] = (host(col.months), host(col.days),
+                                        host(col.nanos))
         return pa.Array.from_buffers(pa_type, len(col), [_vbuf(col),
                                                          buf(raw)])
     if isinstance(col, nd.FixedSizeListColumn):
         return pa.Array.from_buffers(pa_type, len(col), [_vbuf(col)],
-                                     children=[column_to_pyarrow(col.child)])
+                                     children=[_to_pyarrow(col.child)])
     if isinstance(col, nd.MapColumn):
-        keys, items = column_to_pyarrow(col.keys), column_to_pyarrow(
+        keys, items = _to_pyarrow(col.keys), _to_pyarrow(
             col.items)
         # the entries carry the map's own struct type (a non-null key)
         entries = pa.Array.from_buffers(
             pa.struct([pa_type.key_field, pa_type.item_field]), len(keys),
             [None], children=[keys, items])
         return pa.Array.from_buffers(pa_type, len(col), [
-            _vbuf(col), buf(_host(col.offsets))], children=[entries])
+            _vbuf(col), buf(host(col.offsets))], children=[entries])
     if isinstance(col, nd.UnionColumn):
-        bufs = [None, buf(_host(col.type_ids))]
+        bufs = [None, buf(host(col.type_ids))]
         if col.offsets is not None:
-            bufs.append(buf(_host(col.offsets)))
+            bufs.append(buf(host(col.offsets)))
         return pa.Array.from_buffers(pa_type, len(col), bufs, children=[
-            column_to_pyarrow(c) for c in col.children])
+            _to_pyarrow(c) for c in col.children])
     if isinstance(col, nd.RunEndColumn):
         return pa.RunEndEncodedArray.from_arrays(
-            pa.array(_host(col.run_ends)), column_to_pyarrow(col.values),
+            pa.array(host(col.run_ends)), _to_pyarrow(col.values),
             pa_type)
     raise ArrowNotImplementedError(f"export of {type(col).__name__}")
 

@@ -8,7 +8,11 @@ lazy-DFA regex engine with the reference's bounded handle cache)
 (counterpart of arrow_tpu/utils/native.py: _load, _bind_strings,
 intern_varlen, gather_varlen, argsort_varlen, encode_varlen_rows,
 decode_varlen_rows and the string bindings, native.py:28-86,197-290,
-430-650).
+430-650); and the codecs of the file layer (io/): validity bitmaps,
+LZ4 frames and blocks, Parquet's RLE / bit-packed hybrid, PLAIN and
+DELTA byte arrays, DELTA_BINARY_PACKED, snappy, XXH64 and the
+split-block bloom filter, and the C-owned memory of the C Data
+Interface (native.py:96-130,268-430,797-819).
 
 The library is `native/libhostcodec.so` at the repository's root, built
 by `make -C native` at first use (and again when hostcodec.cpp is newer
@@ -37,7 +41,14 @@ __all__ = ["intern_varlen", "gather_varlen", "argsort_varlen",
            "encode_varlen_rows", "decode_varlen_rows", "MATCH_LIKE",
            "MATCH_STARTS", "MATCH_ENDS", "MATCH_CONTAINS", "MATCH_EQ",
            "bytes_match", "bytes_cmp_scalar", "ascii_case", "utf8_substring",
-           "utf8_char_lengths", "regex_compile", "regex_match"]
+           "utf8_char_lengths", "regex_compile", "regex_match",
+           "pack_bits", "unpack_bits", "count_set_bits",
+           "lz4_frame_compress", "lz4_frame_decompress",
+           "lz4_block_decompress", "rle_bp_decode", "rle_bp_encode",
+           "plain_byte_array_decode", "plain_byte_array_encode",
+           "delta_binary_packed_decode", "delta_byte_array_build",
+           "snappy_decompress", "snappy_compress", "xxhash64",
+           "sbbf_insert", "sbbf_check", "cdata_malloc", "cdata_release"]
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _SO = _NATIVE_DIR / "libhostcodec.so"
@@ -111,6 +122,7 @@ def _library() -> ctypes.CDLL:
         lib.regex_match_batch.argtypes = [ctypes.c_void_p, i64p, u8p, i64,
                                           u8p]
         lib.regex_match_batch.restype = None
+        _bind_io(lib)
         _lib = lib
     return _lib
 
@@ -343,3 +355,238 @@ def regex_match(handle, offsets: np.ndarray, data: np.ndarray) -> np.ndarray:
                                  _ptr(data, ctypes.c_uint8), n,
                                  _ptr(out, ctypes.c_uint8))
     return out[:n].view(bool)
+
+
+# ---- the file layer's codecs (native.py:96-130,268-430,797-819) ----------
+
+def _bind_io(lib: ctypes.CDLL) -> None:
+    i64, u8p = ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)
+    i32p, i64p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    u64, u64p = ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint64)
+    sigs = {
+        "pack_bits": ([u8p, i64, u8p], None),
+        "unpack_bits": ([u8p, i64, u8p], None),
+        "count_set_bits": ([u8p, i64], i64),
+        "lz4_frame_compress": ([u8p, i64, u8p, i64], i64),
+        "lz4_frame_decompress": ([u8p, i64, u8p, i64], i64),
+        "lz4_block_decompress": ([u8p, i64, u8p, i64], i64),
+        "rle_bp_decode": ([u8p, i64, ctypes.c_int32, i64, u32p], i64),
+        "rle_bp_encode": ([u32p, i64, ctypes.c_int32, u8p, i64], i64),
+        "plain_byte_array_decode": ([u8p, i64, i64, i32p, u8p, i64], i64),
+        "plain_byte_array_encode": ([i64p, u8p, i64, u8p, i64], i64),
+        "delta_binary_packed_decode": ([u8p, i64, i64, i64p], i64),
+        "delta_byte_array_build": ([i64p, i64p, u8p, i64, i64, i32p, u8p,
+                                    i64], i64),
+        "snappy_decompress": ([u8p, i64, u8p, i64], i64),
+        "snappy_compress": ([u8p, i64, u8p, i64], i64),
+        "xxhash64": ([u8p, i64, u64], u64),
+        "sbbf_insert": ([u8p, i64, u64p, i64], None),
+        "sbbf_check": ([u8p, i64, u64p, i64, u8p], None),
+        "cdata_malloc": ([i64], ctypes.c_void_p),
+    }
+    for name, (args, res) in sigs.items():
+        f = getattr(lib, name)
+        f.argtypes, f.restype = args, res
+
+
+def _src(data) -> np.ndarray:
+    """Bytes (or a uint8 array) as a contiguous uint8 array, no copy."""
+    if isinstance(data, np.ndarray):
+        return np.ascontiguousarray(data, np.uint8).reshape(-1)
+    return np.frombuffer(data, np.uint8)
+
+
+def _u8(a: np.ndarray):
+    return _ptr(a, ctypes.c_uint8) if len(a) \
+        else _ptr(np.zeros(1, np.uint8), ctypes.c_uint8)
+
+
+def pack_bits(mask: np.ndarray) -> np.ndarray:
+    """A bool mask as an LSB-first bitmap (Arrow's validity layout)."""
+    mask = np.ascontiguousarray(mask, np.uint8)
+    out = np.zeros((len(mask) + 7) // 8, np.uint8)
+    _library().pack_bits(_u8(mask), len(mask), _u8(out))
+    return out
+
+
+def unpack_bits(bits, n: int) -> np.ndarray:
+    """The first `n` bits of an LSB-first bitmap as a bool array."""
+    bits = _src(bits)
+    out = np.zeros(n, np.uint8)
+    _library().unpack_bits(_u8(bits), n, _u8(out))
+    return out.view(bool)
+
+
+def count_set_bits(bits, n: int) -> int:
+    """The set bits among the first `n` of an LSB-first bitmap."""
+    return int(_library().count_set_bits(_u8(_src(bits)), n))
+
+
+def lz4_frame_compress(data) -> bytes:
+    """One LZ4 frame (Arrow IPC's LZ4_FRAME buffer codec)."""
+    src = _src(data)
+    cap = len(src) + len(src) // 200 + 64
+    out = np.zeros(cap, np.uint8)
+    n = _library().lz4_frame_compress(_u8(src), len(src), _u8(out), cap)
+    if n < 0:
+        raise ValueError("lz4 frame compression overflow")
+    return out[:n].tobytes()
+
+
+def lz4_frame_decompress(data, uncompressed_len: int) -> bytes:
+    src = _src(data)
+    out = np.zeros(max(uncompressed_len, 1), np.uint8)
+    n = _library().lz4_frame_decompress(_u8(src), len(src), _u8(out),
+                                        uncompressed_len)
+    if n != uncompressed_len:
+        raise ValueError(
+            f"lz4 frame decompressed to {n}, expected {uncompressed_len}")
+    return out[:uncompressed_len].tobytes()
+
+
+def lz4_block_decompress(data, uncompressed_len: int):
+    """One raw LZ4 block (Parquet's LZ4_RAW) -> (bytes written, the
+    output array); the caller checks the count."""
+    src = _src(data)
+    out = np.zeros(max(uncompressed_len, 1), np.uint8)
+    n = _library().lz4_block_decompress(_u8(src), len(src), _u8(out),
+                                        uncompressed_len)
+    return int(n), out[:uncompressed_len]
+
+
+def rle_bp_decode(data, bit_width: int, count: int) -> np.ndarray:
+    """RLE / bit-packed hybrid -> uint32[count] (parquet encodings/rle.rs)."""
+    src = _src(data)
+    out = np.zeros(count, np.uint32)
+    consumed = _library().rle_bp_decode(_u8(src), len(src), bit_width,
+                                        count, _ptr(out, ctypes.c_uint32))
+    if consumed < 0:
+        raise ValueError("malformed RLE/bit-packed data")
+    return out
+
+
+def rle_bp_encode(vals: np.ndarray, bit_width: int) -> bytes:
+    vals = np.ascontiguousarray(vals, np.uint32)
+    cap = len(vals) * ((bit_width + 7) // 8 + 1) + 64
+    out = np.zeros(cap, np.uint8)
+    n = _library().rle_bp_encode(_ptr(vals, ctypes.c_uint32), len(vals),
+                                 bit_width, _u8(out), cap)
+    if n < 0:
+        raise ValueError("rle encode overflow")
+    return out[:n].tobytes()
+
+
+def plain_byte_array_decode(data, count: int):
+    """u32-length-prefixed byte arrays -> (int32 offsets[count+1], u8 data)."""
+    src = _src(data)
+    offsets = np.zeros(count + 1, np.int32)
+    out = np.zeros(max(len(src), 1), np.uint8)
+    total = _library().plain_byte_array_decode(
+        _u8(src), len(src), count, _ptr(offsets, ctypes.c_int32), _u8(out),
+        len(out))
+    if total < 0:
+        raise ValueError("malformed PLAIN byte-array page")
+    return offsets, out[:total]
+
+
+def plain_byte_array_encode(offsets: np.ndarray, data: np.ndarray) -> bytes:
+    """(offsets, data) -> the u32-length-prefixed PLAIN byte-array stream."""
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    data = np.ascontiguousarray(data, np.uint8)
+    n = len(offsets) - 1
+    cap = int(offsets[-1]) + 4 * n + 8
+    out = np.zeros(max(cap, 1), np.uint8)
+    sz = _library().plain_byte_array_encode(
+        _ptr(offsets, ctypes.c_int64), _u8(data), n, _u8(out), cap)
+    if sz < 0:
+        raise ValueError("byte-array encode overflow")
+    return out[:sz].tobytes()
+
+
+def delta_binary_packed_decode(data, count: int):
+    """-> (int64 values[count], bytes consumed)."""
+    src = _src(data)
+    out = np.zeros(max(count, 1), np.int64)
+    consumed = _library().delta_binary_packed_decode(
+        _u8(src), len(src), count, _ptr(out, ctypes.c_int64))
+    if consumed < 0:
+        raise ValueError("malformed DELTA_BINARY_PACKED page")
+    return out[:count], int(consumed)
+
+
+def delta_byte_array_build(prefix_lens: np.ndarray, suffix_lens: np.ndarray,
+                           suffixes):
+    """-> (int32 offsets, u8 data) from incrementally encoded strings."""
+    count = len(prefix_lens)
+    pl = np.ascontiguousarray(prefix_lens, np.int64)
+    sl = np.ascontiguousarray(suffix_lens, np.int64)
+    suf = _src(suffixes)
+    cap = int(pl.sum() + sl.sum()) + 1
+    offsets = np.zeros(count + 1, np.int32)
+    data = np.zeros(cap, np.uint8)
+    total = _library().delta_byte_array_build(
+        _ptr(pl, ctypes.c_int64), _ptr(sl, ctypes.c_int64), _u8(suf),
+        len(suf), count, _ptr(offsets, ctypes.c_int32), _u8(data), cap)
+    if total < 0:
+        raise ValueError("malformed DELTA_BYTE_ARRAY page")
+    return offsets, data[:total]
+
+
+def snappy_decompress(data, uncompressed_len: int) -> np.ndarray:
+    """-> a uint8 array (16 bytes of slack let the C side copy in 8- and
+    16-byte chunks)."""
+    src = _src(data)
+    out = np.empty(max(uncompressed_len, 1) + 16, np.uint8)
+    n = _library().snappy_decompress(_u8(src), len(src), _u8(out),
+                                     uncompressed_len + 16)
+    if n != uncompressed_len:
+        raise ValueError(
+            f"snappy decompressed to {n}, expected {uncompressed_len}")
+    return out[:uncompressed_len]
+
+
+def snappy_compress(data) -> bytes:
+    src = _src(data)
+    cap = len(src) + len(src) // 4 + 64
+    out = np.empty(cap, np.uint8)
+    n = _library().snappy_compress(_u8(src), len(src), _u8(out), cap)
+    return out[:n].tobytes()
+
+
+def xxhash64(data, seed: int = 0) -> int:
+    """XXH64 of a byte string (the Parquet bloom filter's hash)."""
+    src = _src(data)
+    return int(_library().xxhash64(_u8(src), len(src), seed))
+
+
+def sbbf_insert(bitset: np.ndarray, hashes: np.ndarray) -> None:
+    """Insert 64-bit hashes into a split-block bloom filter in place
+    (parquet bloom_filter/mod.rs): 32 bytes a block."""
+    hashes = np.ascontiguousarray(hashes, np.uint64)
+    _library().sbbf_insert(_u8(bitset), len(bitset) // 32,
+                           _ptr(hashes, ctypes.c_uint64), len(hashes))
+
+
+def sbbf_check(bitset, hashes: np.ndarray) -> np.ndarray:
+    """Whether each hash may be in the filter (False: surely absent)."""
+    bits = np.ascontiguousarray(_src(bitset))
+    hashes = np.ascontiguousarray(hashes, np.uint64)
+    out = np.zeros(max(len(hashes), 1), np.uint8)
+    _library().sbbf_check(_u8(bits), len(bits) // 32,
+                          _ptr(hashes, ctypes.c_uint64), len(hashes),
+                          _u8(out))
+    return out[:len(hashes)].astype(bool)
+
+
+def cdata_malloc(size: int) -> int:
+    """Zeroed C memory that the C Data Interface's native release
+    callbacks free (hostcodec.cpp cdata_release_*)."""
+    return int(_library().cdata_malloc(max(int(size), 1)))
+
+
+def cdata_release(kind: str) -> int:
+    """The address of the native release callback of an exported
+    ArrowSchema (`kind` "schema") or ArrowArray ("array")."""
+    f = getattr(_library(), f"cdata_release_{kind}")
+    return ctypes.cast(f, ctypes.c_void_p).value

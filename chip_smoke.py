@@ -193,6 +193,37 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      call is held to the same call on CPU copies; the calls' first runs
      go through op_timer, whose report is printed; o_comment's copy to
      the host is timed apart.
+ 30. TPC-H SF10 lineitem with all 16 columns of the spec (59,986,052
+     rows, about 9 GB on the card: phase 28's columns, l_partkey,
+     l_suppkey by 4.2.3's formula, the commit and receipt dates,
+     l_shipinstruct and l_shipmode as Dictionary<Int32, Utf8>, l_comment
+     of 10-43 bytes cut from phase 29's text pool, made on the card)
+     through the file layer: write_parquet (snappy, dictionary,
+     1,048,576-row row groups, statistics, page index); pyarrow reads
+     each row group equal to the source rows; pyarrow writes the rows it
+     takes from the port's export_stream (decimals as FLBA(7)) and
+     read_parquet of that file onto the card equals the source (the last
+     offset of l_comment below 2^31; filter_table of it takes
+     range_gather's int32 index, as INDEX32_LIMIT says); Q6's scan
+     (RowFilter over l_shipdate, l_discount, l_quantity; l_extendedprice
+     read by the rows kept) with K1 in every row group at both sites and
+     sum(l_extendedprice * l_discount) equal to the generator's cents;
+     Q1's scan (RowFilter l_shipdate <= 1998-09-02) and group_by
+     l_returnflag, l_linestatus (count, min and max of l_shipdate and
+     l_receiptdate) on the dictionary plan (K2) equal to bincount /
+     scatter_reduce_ over the generator's codes; write_file with LZ4 and
+     read_file onto the card, write_stream and a StreamDecoder fed 64 MB
+     pieces, each batch equal; import_stream of a pyarrow reader over the
+     port's file, equal; the first four row groups read on the CPU route
+     and the two scans over them, equal to the card's bit for bit; a
+     plain ParquetReaderBuilder scan of those row groups with the
+     row-group prefetch, on a side stream, equal to one without.  Each
+     scan's K1 launches equal its K1 calls, every keep mask on the card.
+     Each call's seconds on the host clock (synced), the file sizes, the
+     peak device memory, the host's available memory before and after
+     the phase and its lowest reading after a step; then K1 at the four
+     scan sites (row group 0) and K2 at Q1's group_by against their plain
+     versions.  Phase 30 is not traced with --profile (host-bound).
 
 `--profile` also traces the dictionary and config-4 group-bys, the
 config-5 joins on both plans, one streamed chunk, config 2 (eager and
@@ -218,7 +249,9 @@ two-column join), the filter_table call of config 2's WHERE, the
 rank and partition calls of step 23, the first streamed run of step 24,
 the group_by and filter_table calls of steps 25-27, the group_by and
 rank calls of step 28, Q13's filter_table and group_by and Q22's
-group_by in step 29.
+group_by in step 29, and in step 30 the calls each scan site made over
+its scan (one a row group; the scan's launch count equals the two
+sites' calls) and the launches of Q1's group_by.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object of per-kernel results; the last line is the JSON result
@@ -230,10 +263,12 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -2499,7 +2534,9 @@ def tpch_lineitem(n: int, dev):
         dt.Field(k, c.dtype, False) for k, c in cols.items())))
     return table, {**cents, "lines": lines, "okeys": okeys,
                    "ship": raw["l_shipdate"], "linenumber": linenumber,
-                   "flag": ret, "status": status}
+                   "flag": ret, "status": status, "part": part,
+                   "commit": raw["l_commitdate"],
+                   "receipt": raw["l_receiptdate"]}
 
 
 def _limb_ints(col) -> torch.Tensor:
@@ -3238,6 +3275,7 @@ class CardMeter:
     def __init__(self, profile: bool, what: str):
         self.profile, self.what, self.times = profile, what, {}
         self.peak = 0
+        self.seconds = {}
 
     def peak_gib(self) -> float:
         self.peak = max(self.peak, torch.cuda.max_memory_allocated())
@@ -3256,6 +3294,15 @@ class CardMeter:
         from arrow_tpu_torch.utils.trace import op_timer
         with op_timer(name):
             out, self.times[name] = once_ms(fn)
+        return out
+
+    def host(self, name, fn):
+        """fn's result; its seconds on the host clock, synced around."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.seconds[name] = time.perf_counter() - t0
         return out
 
     def counted(self, name, must, fn, *watches, exactly=None):
@@ -3585,6 +3632,584 @@ def run_phase29(dev, profile: bool):
                      for name, fn, *args in cpu_calls]
 
 
+# ---- phase 30: the C Data Interface, Arrow IPC and Parquet -----------------
+
+P30_ROWS = 59_986_052              # TPC-H SF10 lineitem (spec 4.2.3)
+P30_SUPPLIERS = 100_000            # S = SF * 10,000 (spec 4.2.3)
+P30_ROW_GROUP = 1 << 20            # WriterProperties' default row group
+P30_CPU_GROUPS = 4                 # row groups the CPU route reads
+P30_IPC_GROUPS = None              # row groups through IPC and C Data (all)
+P30_PIECE = 64 << 20               # StreamDecoder's feed, bytes
+P30_POOL_BYTES = P29_POOL_BYTES    # the text pool l_comment is cut from
+P30_SHIPINSTRUCT = ("DELIVER IN PERSON", "COLLECT COD", "NONE",
+                    "TAKE BACK RETURN")
+P30_SHIPMODE = ("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB")
+P30_Q6_DATES = ("1994-01-01", "1995-01-01")        # Q6's shipdate year
+P30_Q6_DISCOUNT = (5, 7)           # 0.06 +- 0.01, in cents
+P30_Q6_QUANTITY = 24
+P30_Q1_CUT = "1998-09-02"          # Q1: 1998-12-01 minus 90 days
+
+
+def _cut_device(pool: torch.Tensor, starts: torch.Tensor,
+                lens: torch.Tensor, chunk: int = 1 << 23):
+    """(int64 offsets, bytes) of pool[starts[i]:starts[i] + lens[i]] on
+    the card, `chunk` rows at a time."""
+    n = lens.shape[0]
+    offs = torch.zeros(n + 1, dtype=torch.int64, device=lens.device)
+    torch.cumsum(lens, 0, out=offs[1:])
+    data = torch.empty(int(offs[-1]), dtype=torch.uint8, device=lens.device)
+    for a in range(0, n, chunk):
+        b = min(a + chunk, n)
+        lo, hi = int(offs[a]), int(offs[b])
+        rid = torch.repeat_interleave(
+            torch.arange(b - a, device=lens.device), lens[a:b],
+            output_size=hi - lo)
+        pos = torch.arange(hi - lo, device=lens.device) \
+            - (offs[a:b] - lo)[rid]
+        data[lo:hi] = pool[starts[a:b][rid] + pos]
+    return offs, data
+
+
+def tpch_lineitem16(n: int, dev, pool_bytes: int = P30_POOL_BYTES,
+                    seed: int = SEED):
+    """lineitem with all 16 columns of the spec (1.4.1, 4.2.3) on the
+    card: phase 28's columns, and l_partkey (the part phase 28 draws),
+    l_suppkey by 4.2.3's formula over S suppliers, l_commitdate and
+    l_receiptdate from `tpch_dates`, l_shipinstruct (4 values) and
+    l_shipmode (7) as Dictionary<Int32, Utf8>, l_comment of 10-43 bytes
+    cut from the text pool at random offsets.  Keys Int64, l_linenumber
+    Int32, the money columns Decimal128(15, 2), dates Date32; no nulls.
+    Returns the table and the generator's integers."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import (DictionaryColumn,
+                                             PrimitiveColumn, StringColumn)
+    from arrow_tpu_torch.core.table import Table
+    base, g = tpch_lineitem(n, dev)
+    part = g["part"]
+    s = P30_SUPPLIERS
+    i = _umod(splitmix(n, 11 * n, dev), 4)
+    supp = (part + i * (s // 4 + (part - 1) // s)) % s + 1
+    instruct = _umod(splitmix(n, 12 * n, dev), len(P30_SHIPINSTRUCT))
+    mode = _umod(splitmix(n, 13 * n, dev), len(P30_SHIPMODE))
+    pool = torch.from_numpy(tpch_text_pool(np.random.default_rng(seed),
+                                           pool_bytes)).to(dev)
+    lens = 10 + _umod(splitmix(n, 14 * n, dev), 34)
+    starts = _umod(splitmix(n, 15 * n, dev), pool.shape[0] - 43)
+    offs, data = _cut_device(pool, starts, lens)
+    col = {f.name: c for f, c in zip(base.schema.fields, base.columns)}
+    words = lambda ws: StringColumn.from_pylist(list(ws), device=dev)
+    cols = {"l_orderkey": col["l_orderkey"],
+            "l_partkey": PrimitiveColumn(part, dt.int64),
+            "l_suppkey": PrimitiveColumn(supp, dt.int64),
+            "l_linenumber": col["l_linenumber"],
+            **{k: col[k] for k in ("l_quantity", "l_extendedprice",
+                                   "l_discount", "l_tax", "l_returnflag",
+                                   "l_linestatus", "l_shipdate")},
+            "l_commitdate": PrimitiveColumn(g["commit"], dt.date32),
+            "l_receiptdate": PrimitiveColumn(g["receipt"], dt.date32),
+            "l_shipinstruct": DictionaryColumn(instruct.to(torch.int32),
+                                               words(P30_SHIPINSTRUCT)),
+            "l_shipmode": DictionaryColumn(mode.to(torch.int32),
+                                           words(P30_SHIPMODE)),
+            "l_comment": StringColumn(offs.to(torch.int32), data, dt.utf8)}
+    table = Table(list(cols.values()), dt.Schema(tuple(
+        dt.Field(k, c.dtype, False) for k, c in cols.items())))
+    return table, {**g, "supp": supp, "instruct": instruct, "mode": mode,
+                   "comment_lens": lens}
+
+
+def _meminfo_gib() -> float:
+    """The host's available memory (/proc/meminfo), GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
+def _same_on_device(got, want, what: str) -> None:
+    """Two columns or tables of the port, on one device, bit for bit."""
+    from torch.utils import _pytree as pytree
+    gl, gs = pytree.tree_flatten(got)
+    wl, ws = pytree.tree_flatten(want)
+    if str(gs) != str(ws) or len(gl) != len(wl):
+        raise AssertionError(f"{what}: {gs} against {ws}")
+    for a, b in zip(gl, wl):
+        if isinstance(a, torch.Tensor):
+            if a.dtype != b.dtype or a.shape != b.shape or \
+                    not torch.equal(_bits(a), _bits(b.to(a.device))):
+                raise AssertionError(f"{what}: the buffers differ")
+        elif a != b:
+            raise AssertionError(f"{what}: {a!r} against {b!r}")
+
+
+def _same_table(got, want, what: str) -> None:
+    """A table read back equal to its source: the same fields (name,
+    type, nullability) and rows; dictionary columns compare by their
+    decoded strings (a reader may build its own dictionary), the others
+    buffer by buffer."""
+    from arrow_tpu_torch.ops.strings import dictionary_decode
+    fields = lambda t: [(f.name, repr(f.dtype), f.nullable)
+                        for f in t.schema.fields]
+    if fields(got) != fields(want) or got.num_rows != want.num_rows:
+        raise AssertionError(f"{what}: {fields(got)} ({got.num_rows} rows)"
+                             f" against {fields(want)} ({want.num_rows})")
+    for f, a, b in zip(got.schema.fields, got.columns, want.columns):
+        if f.dtype.is_dictionary:
+            a, b = dictionary_decode(a), dictionary_decode(b)
+        _same_on_device(a, b, f"{what}: {f.name}")
+
+
+def _day_scalar(day: str):
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.datum import Scalar
+    return Scalar(_days(*map(int, day.split("-"))), dt.date32)
+
+
+def q6_predicate(t):
+    """Q6's WHERE over a table of l_shipdate, l_discount, l_quantity: the
+    dates through the port's comparisons, the decimals by their low
+    limbs on the card (a Decimal128(15, 2)'s unscaled value; the port's
+    decimal comparisons rescale through host Python ints, ROADMAP A7.8,
+    and take no Scalar, as in the reference)."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import PrimitiveColumn
+    from arrow_tpu_torch.ops import boolean as pb, cmp
+    ship = t.column("l_shipdate")
+    disc = _limb_ints(t.column("l_discount"))
+    qty = _limb_ints(t.column("l_quantity"))
+    lo, hi = P30_Q6_DISCOUNT
+    m = pb.and_(cmp.gt_eq(ship, _day_scalar(P30_Q6_DATES[0])),
+                cmp.lt(ship, _day_scalar(P30_Q6_DATES[1])))
+    return pb.and_(m, PrimitiveColumn(
+        (disc >= lo) & (disc <= hi) & (qty < 100 * P30_Q6_QUANTITY),
+        dt.bool_))
+
+
+def q1_predicate(t):
+    """Q1's WHERE: l_shipdate <= 1998-09-02."""
+    from arrow_tpu_torch.ops import cmp
+    return cmp.lt_eq(t.column("l_shipdate"), _day_scalar(P30_Q1_CUT))
+
+
+P30_Q1_AGGS = (("l_shipdate", "count_all"), ("l_shipdate", "min"),
+               ("l_shipdate", "max"), ("l_receiptdate", "min"),
+               ("l_receiptdate", "max"))
+
+
+def q6_scan(path: str, dev, groups=None):
+    """Q6's scan: the predicate's columns decoded first, then the other
+    projected column with the rows it keeps; -> the batches."""
+    from arrow_tpu_torch.io.parquet_io import ParquetReaderBuilder, RowFilter
+    b = ParquetReaderBuilder(
+        path, columns=["l_extendedprice", "l_discount"],
+        batch_size=P30_ROW_GROUP, device=dev, row_groups=groups,
+        row_filter=RowFilter(q6_predicate,
+                             ["l_shipdate", "l_discount", "l_quantity"]))
+    return list(b.build())
+
+
+def q1_scan(path: str, dev, groups=None):
+    """Q1's scan and GROUP BY l_returnflag, l_linestatus: -> (the
+    concatenated batches, the grouped table)."""
+    from arrow_tpu_torch.io.parquet_io import ParquetReaderBuilder, RowFilter
+    from arrow_tpu_torch.ops.concat import concat_tables
+    from arrow_tpu_torch.ops.groupby import AggSpec, group_by
+    b = ParquetReaderBuilder(
+        path, columns=["l_returnflag", "l_linestatus", "l_shipdate",
+                       "l_receiptdate"],
+        batch_size=P30_ROW_GROUP, device=dev, row_groups=groups,
+        row_filter=RowFilter(q1_predicate, ["l_shipdate"]))
+    rows = concat_tables(list(b.build()))
+    return rows, group_by(rows, ["l_returnflag", "l_linestatus"],
+                          [AggSpec(c, op) for c, op in P30_Q1_AGGS])
+
+
+def _q6_closed_form(g, n: int, rows: int, groups: int):
+    """Q6's kept rows and revenue (cents * cents) from the generator's
+    integers, and the row groups whose kept share is strictly between 0
+    and 1 (those filter, K1)."""
+    lo, hi = (_days(*map(int, d.split("-"))) for d in P30_Q6_DATES)
+    ship, disc = g["ship"][:n], g["l_discount"][:n]
+    keep = (ship >= lo) & (ship < hi) & (disc >= P30_Q6_DISCOUNT[0]) \
+        & (disc <= P30_Q6_DISCOUNT[1]) \
+        & (g["l_quantity"][:n] < 100 * P30_Q6_QUANTITY)
+    rev = int((g["l_extendedprice"][:n] * disc)[keep].sum())
+    per = torch.bincount(torch.arange(n, device=keep.device)[keep] // rows,
+                         minlength=groups)
+    size = torch.full_like(per, rows)
+    size[-1] = n - rows * (groups - 1)
+    return keep, rev, int(((per > 0) & (per < size)).sum())
+
+
+def _q1_check(out, g, n: int, what: str) -> None:
+    """Q1's groups against bincount / scatter_reduce_ over the
+    generator's flag * 2 + status where l_shipdate <= the cut."""
+    from arrow_tpu_torch.ops.strings import dictionary_decode
+    cut = _days(*map(int, P30_Q1_CUT.split("-")))
+    keep = g["ship"][:n] <= cut
+    code = (g["flag"][:n] * 2 + g["status"][:n])[keep]
+    cnt = torch.bincount(code, minlength=6)
+    want = {}
+    for c in cnt.nonzero().squeeze(1).tolist():
+        row = [int(cnt[c])]
+        for key in ("ship", "receipt"):
+            v = g[key][:n][keep][code == c]
+            row += [int(v.min()), int(v.max())]
+        want[("ANR"[c // 2], "FO"[c % 2])] = row
+    flags = dictionary_decode(out.column("l_returnflag")).to_pylist()
+    stats = dictionary_decode(out.column("l_linestatus")).to_pylist()
+    got = {(f, s): [int(out.columns[2 + j].values[i])
+                    for j in range(len(P30_Q1_AGGS))]
+           for i, (f, s) in enumerate(zip(flags, stats))}
+    if got != want:
+        raise AssertionError(f"{what}: {got} against {want}")
+
+
+def _classify(filters, compacts, pred_cols):
+    """The K1 calls of a scan by call site: a filter_table of the
+    predicate's columns (parquet_io.py) or of the rows a selection keeps
+    (parquet_native.py); each filter_table makes one compaction."""
+    if len(filters) != len(compacts):
+        raise AssertionError(f"{len(filters)} filter_table calls made "
+                             f"{len(compacts)} compactions")
+    sites = {"predicate": [], "selection": []}
+    for (args, _), call in zip(filters, compacts):
+        names = set(args[0].schema.names)
+        sites["predicate" if names <= set(pred_cols) else
+              "selection"].append(call)
+    return sites
+
+
+# the modules that call K1's wrapper; a scan watches each of them
+K1_CALLERS = (("compact", "groupby"), ("compact", "sort"),
+              ("compact", "join"))
+
+
+def _launched_each(by_site, others, launches, dev, what: str) -> None:
+    """Every K1 call of a scan on the scan's device, and the launch
+    counter over the scan equal to the calls whose keep is on a card:
+    those of the two scan sites and `others`, the wrapper's calls from
+    the rest of K1_CALLERS (Q1's group_by makes one).  So the per-site
+    launches of the kernels line are the counter's."""
+    calls = by_site["predicate"] + by_site["selection"] + others
+    off = [a[0].device for a, _ in calls if a[0].device != dev]
+    if off:
+        raise AssertionError(f"{what}: a keep mask on {off[0]}, not {dev}")
+    on_card = sum(a[0].is_cuda for a, _ in calls)
+    if launches["compact"] != on_card:
+        raise AssertionError(f"{what}: {launches['compact']} K1 launches "
+                             f"for {on_card} calls on the card")
+
+
+def p30_calls(table, g, dev, meter, tmp, rows: int = P30_ROW_GROUP,
+              cpu_groups: int = P30_CPU_GROUPS, ipc_groups=P30_IPC_GROUPS,
+              piece: int = P30_PIECE):
+    """Phase 30's calls over `table` (from `tpch_lineitem16`), its files
+    under the directory `tmp`; each call timed by `meter` and checked.
+    Returns (the K1 and K2 calls the sites take with their launches, the
+    step seconds, the file sizes)."""
+    import io
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from arrow_tpu_torch.io import cdata, ipc
+    from arrow_tpu_torch.io import parquet_native as pn
+    from arrow_tpu_torch.io.interop import table_from_pyarrow
+    from arrow_tpu_torch.io.parquet_io import (ParquetReaderBuilder,
+                                               WriterProperties, read_metadata,
+                                               read_parquet, write_parquet)
+    from arrow_tpu_torch.ops import take as tk
+    from arrow_tpu_torch.ops.concat import concat_tables
+    from arrow_tpu_torch.ops.filter import filter_table
+    from arrow_tpu_torch.ops.groupby import AggSpec, group_by
+    n = table.num_rows
+    groups = -(-n // rows)
+    what = meter.what
+    sizes, sites, lows = {}, {}, []
+
+    def step(name, fn):
+        """meter.host, then the host's available memory read."""
+        out = meter.host(name, fn)
+        lows.append((_meminfo_gib(), name))
+        return out
+    part = lambda k: [table.slice(a, min(rows, n - a))
+                      for a in range(0, min(n, k * rows), rows)]
+
+    # 1. write
+    ours = str(tmp / "lineitem.parquet")
+    step("write_parquet", lambda: write_parquet(
+        ours, table, WriterProperties(row_group_size=rows,
+                                      write_page_index=True)))
+    sizes["port's parquet"] = Path(ours).stat().st_size
+    md = read_metadata(ours)
+    if (md.num_rows, md.num_row_groups) != (n, groups):
+        raise AssertionError(f"{what}: the footer says {md.num_rows} rows "
+                             f"in {md.num_row_groups} row groups")
+
+    # 2. pyarrow reads the port's file, row group by row group
+    def pyarrow_reads():
+        pf = pq.ParquetFile(ours)
+        for i, want in enumerate(part(groups)):
+            _same_table(table_from_pyarrow(pf.read_row_group(i), dev), want,
+                        f"{what}: pyarrow's row group {i}")
+    step("pyarrow reads the port's file", pyarrow_reads)
+
+    # 3. pyarrow writes the rows it takes from export_stream; the port
+    # reads that file back
+    theirs = str(tmp / "lineitem_pyarrow.parquet")
+
+    class Exported:
+        def __arrow_c_stream__(self, requested_schema=None):
+            return cdata.export_stream(part(groups))
+
+    def pyarrow_writes():
+        reader = pa.RecordBatchReader.from_stream(Exported())
+        with pq.ParquetWriter(theirs, reader.schema) as w:
+            for batch in reader:
+                w.write_batch(batch)
+    step("pyarrow writes from export_stream", pyarrow_writes)
+    sizes["pyarrow's parquet"] = Path(theirs).stat().st_size
+    flba = pq.ParquetFile(theirs).schema.column(4)
+    back = step("read_parquet of pyarrow's file",
+                      lambda: read_parquet(theirs, device=dev))
+    _same_table(back, table, f"{what}: read_parquet of pyarrow's file "
+                f"({flba.physical_type}({flba.length}) decimals)")
+    last = int(back.column("l_comment").offsets[-1])
+    if last >= 2 ** 31:
+        raise AssertionError(f"{what}: l_comment's last offset {last}")
+    real, seen = tk.range_gather, []
+
+    def spy(offsets, idx, limit):
+        out = real(offsets, idx, limit)
+        seen.append((limit, int(out[0][-1]), out[1].dtype))
+        return out
+    tk.range_gather = spy
+    try:
+        kept = filter_table(back, q1_predicate(back))
+    finally:
+        tk.range_gather = real
+    print(f"{what}: l_comment's last offset {last:,} (< 2^31); "
+          f"filter_table of the read-back table keeps {kept.num_rows:,} rows;"
+          f" range_gather (limit, total, index): {seen} (INDEX32_LIMIT "
+          f"{tk.INDEX32_LIMIT:,})", flush=True)
+    if not seen or any((max(lim, tot) < tk.INDEX32_LIMIT)
+                       != (ix == torch.int32) for lim, tot, ix in seen):
+        raise AssertionError(f"{what}: range_gather's index type")
+    del kept
+
+    # 4. Q6
+    pages = (pn.PAGES_DECODED[0], pn.PAGES_SKIPPED[0])
+    q6_cols = ["l_shipdate", "l_discount", "l_quantity"]
+    batches, launches, (filters, compacts, *others) = meter.counted(
+        "Q6 scan", "compact",
+        lambda: step("Q6 scan", lambda: q6_scan(ours, dev)),
+        ("filter_table", "filter"), ("compact", "filter"), *K1_CALLERS)
+    others = sum(others, [])
+    pages = (pn.PAGES_DECODED[0] - pages[0], pn.PAGES_SKIPPED[0] - pages[1])
+    keep, rev, mixed = _q6_closed_form(g, n, rows, groups)
+    q6 = concat_tables(batches)
+    got = int((_limb_ints(q6.column("l_extendedprice"))
+               * _limb_ints(q6.column("l_discount"))).sum())
+    by_site = _classify(filters, compacts, q6_cols)
+    print(f"{what}: Q6 scan kept {q6.num_rows:,} rows "
+          f"({q6.num_rows / n:.2%}), revenue {got / 1e4:,.4f}; K1 calls "
+          f"{ {k: len(v) for k, v in by_site.items()} } over {mixed} row "
+          f"groups that keep some rows, {len(others)} elsewhere; "
+          f"launches {launches}; "
+          f"PAGES_DECODED {pages[0]}, PAGES_SKIPPED {pages[1]}", flush=True)
+    if (q6.num_rows, got) != (int(keep.sum()), rev):
+        raise AssertionError(f"{what}: Q6 {q6.num_rows} rows, {got} "
+                             f"against {int(keep.sum())}, {rev}")
+    if any(len(v) != mixed for v in by_site.values()):
+        raise AssertionError(f"{what}: Q6's K1 calls by site")
+    _launched_each(by_site, others, launches, dev, f"{what}: Q6 scan")
+    sites["Q6 predicate"] = (by_site["predicate"], launches)
+    sites["Q6 selection"] = (by_site["selection"], launches)
+
+    # 5. Q1
+    (rows1, out), launches, (filters, compacts, *others) = meter.counted(
+        "Q1 scan", "compact",
+        lambda: step("Q1 scan and group_by", lambda: q1_scan(ours, dev)),
+        ("filter_table", "filter"), ("compact", "filter"), *K1_CALLERS)
+    others = sum(others, [])
+    by_site = _classify(filters, compacts, ["l_shipdate"])
+    _launched_each(by_site, others, launches, dev, f"{what}: Q1 scan")
+    _q1_check(out, g, n, f"{what}: Q1")
+    print(f"{what}: Q1 scan kept {rows1.num_rows:,} rows "
+          f"({rows1.num_rows / n:.2%}); K1 calls "
+          f"{ {k: len(v) for k, v in by_site.items()} }, {len(others)} "
+          f"elsewhere; launches {launches}; {out.num_rows} groups equal to "
+          f"the closed form",
+          flush=True)
+    sites["Q1 predicate"] = (by_site["predicate"], launches)
+    sites["Q1 selection"] = (by_site["selection"], launches)
+    aggs = [AggSpec(c, op) for c, op in P30_Q1_AGGS]
+    out2, launches, (k2_calls,) = meter.counted(
+        "Q1 group_by", "grouped_aggregate",
+        lambda: group_by(rows1, ["l_returnflag", "l_linestatus"], aggs),
+        ("grouped_aggregate", "groupby"))
+    _same_on_device(out2, out, f"{what}: Q1 group_by again")
+    sites["Q1 group_by"] = (k2_calls, launches)
+    del rows1, out, out2, q6, batches, filters, compacts
+
+    # 6. IPC: a file with LZ4 and a stream fed in pieces
+    k = groups if ipc_groups is None else min(ipc_groups, groups)
+    src = [back.slice(a, min(rows, n - a))
+           for a in range(0, min(n, k * rows), rows)]
+    buf = io.BytesIO()
+    step("ipc.write_file (lz4)",
+               lambda: ipc.write_file(buf, src, compression="lz4"))
+    sizes["IPC file (lz4)"] = buf.tell()
+    got = step("ipc.read_file", lambda: ipc.read_file(
+        buf.getbuffer(), dev))
+    for i, (a, b) in enumerate(zip(got, src)):
+        _same_table(a, b, f"{what}: IPC file batch {i}")
+    if len(got) != len(src):
+        raise AssertionError(f"{what}: {len(got)} IPC file batches")
+    del got, buf
+    buf = io.BytesIO()
+    step("ipc.write_stream", lambda: ipc.write_stream(buf, src))
+    sizes["IPC stream"] = buf.tell()
+
+    def decode():
+        dec, view, i = ipc.StreamDecoder(dev), buf.getbuffer(), 0
+        for a in range(0, len(view), piece):
+            dec.feed(view[a:a + piece])
+            while (t := dec.next_batch()) is not None:
+                _same_table(t, src[i], f"{what}: IPC stream batch {i}")
+                i += 1
+        del view
+        return i
+    if step(f"StreamDecoder fed {piece:,}-byte pieces", decode) \
+            != len(src):
+        raise AssertionError(f"{what}: the stream's batch count")
+    del buf, src
+
+    # 7. the C Data Interface: a pyarrow reader over the port's file
+    def c_import():
+        pf = pq.ParquetFile(ours)
+        reader = pa.RecordBatchReader.from_batches(
+            pf.schema_arrow, pf.iter_batches(batch_size=rows,
+                                             row_groups=range(k)))
+        at = 0
+        for t in cdata.import_stream(reader, dev):
+            _same_table(t, table.slice(at, t.num_rows),
+                        f"{what}: import_stream at row {at}")
+            at += t.num_rows
+        return at
+    if step("import_stream of pyarrow's reader", c_import) \
+            != min(n, k * rows):
+        raise AssertionError(f"{what}: import_stream's row count")
+    del back
+
+    # 8. the CPU route over the first row groups
+    cpu = torch.device("cpu")
+    first = list(range(min(cpu_groups, groups)))
+
+    def cpu_route():
+        for i in first:
+            _same_outcome(pn.ParquetFile(ours, dev).read_row_group(i),
+                          pn.ParquetFile(ours, cpu).read_row_group(i),
+                          f"{what}: row group {i} on the CPU route")
+        _same_outcome(q6_scan(ours, dev, first), q6_scan(ours, cpu, first),
+                      f"{what}: Q6 over row groups {first} on the CPU route")
+        _same_outcome(q1_scan(ours, dev, first), q1_scan(ours, cpu, first),
+                      f"{what}: Q1 over row groups {first} on the CPU route")
+    step(f"the CPU route over {len(first)} row groups", cpu_route)
+
+    # 9. a plain scan with the row-group prefetch, on a side stream,
+    # equal to one without
+    def scan(depth):
+        old = os.environ.get("ARROW_TPU_PARQUET_PREFETCH")
+        os.environ["ARROW_TPU_PARQUET_PREFETCH"] = depth
+        try:
+            return list(ParquetReaderBuilder(ours, batch_size=rows,
+                                             device=dev, row_groups=first)
+                        .build())
+        finally:
+            if old is None:
+                del os.environ["ARROW_TPU_PARQUET_PREFETCH"]
+            else:
+                os.environ["ARROW_TPU_PARQUET_PREFETCH"] = old
+
+    def prefetch():
+        streams = torch.get_device_module(dev)
+        with streams.stream(streams.Stream()):
+            got, want = scan("1"), scan("0")
+            for i, (a, b) in enumerate(zip(got, want)):
+                _same_on_device(a, b, f"{what}: prefetched row group {i}")
+        if len(got) != len(want) or len(got) != len(first):
+            raise AssertionError(f"{what}: {len(got)} prefetched row "
+                                 f"groups, {len(want)} without")
+    step(f"a scan of {len(first)} row groups with and without prefetch, "
+         f"on a side stream", prefetch)
+    low, after = min(lows)
+    print(f"{what}: host memory available after each step: lowest "
+          f"{low:.1f} GiB, after {after!r}", flush=True)
+    return sites, sizes
+
+
+def run_phase30(dev, profile: bool):
+    """Phase 30: TPC-H SF10 lineitem, all 16 columns, made on the card,
+    written to Parquet and read back by pyarrow, written by pyarrow from
+    the port's export_stream and read back by the port, scanned with
+    Q6's and Q1's filters pushed down, grouped for Q1, carried through
+    IPC and the C Data Interface, read on the CPU route and scanned with
+    and without prefetch.  Returns the kernel entries.  Its files go to
+    a temporary directory under the checkout's build/ (git-ignored)."""
+    import tempfile
+    n = P30_ROWS
+    what = (f"phase 30, TPC-H SF10 lineitem through Parquet, IPC and C "
+            f"Data, {n:,} rows")
+    free0 = _meminfo_gib()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    table, g = tpch_lineitem16(n, dev)
+    torch.cuda.synchronize()
+    from arrow_tpu_torch.core.pool import table_memory_size
+    com = table.column("l_comment")
+    print(f"{what}: made on the card in {time.perf_counter() - t0:.1f} s "
+          f"(the text pool on the host included); "
+          f"{table_memory_size(table):,} bytes of buffers, l_comment "
+          f"{com.data.numel():,}; peak {peak_gib():.2f} GiB; host "
+          f"memory available {free0:.1f} GiB", flush=True)
+    meter = CardMeter(profile, what)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        sites, sizes = p30_calls(table, g, dev, meter, Path(tmp))
+    print(f"{what}: seconds (host clock, synced): "
+          f"{json.dumps({k: round(v, 3) for k, v in meter.seconds.items()})}"
+          f"; bytes: {json.dumps(sizes)}; peak device memory "
+          f"{meter.peak_gib():.2f} GiB; host memory available "
+          f"{free0:.1f} GiB before, {_meminfo_gib():.1f} GiB after",
+          flush=True)
+    entries = []
+    for name in ("Q6 predicate", "Q6 selection", "Q1 predicate",
+                 "Q1 selection"):
+        calls, launches = sites[name]
+        (args, kwargs) = calls[0]
+        keep, arrays = args[:2]
+        where = "parquet_io.py" if name.endswith("predicate") \
+            else "parquet_native.py"
+        site = _compact_site(
+            f"phase 30 {name} ({where}), row group 0, {keep.shape[0]:,} "
+            f"rows, {float(keep.float().mean()):.2%} kept", keep,
+            tuple(arrays), kwargs.get("out_cap"),
+            lambda keep=keep, arrays=arrays: (
+                tuple(a[keep] for a in arrays), keep.nonzero()),
+            kwargs.get("positions"))
+        err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+        entries.append(_entry(site, len(calls), err))
+    calls, launches = sites["Q1 group_by"]
+    site = _k2_site(f"phase 30 Q1 group_by(l_returnflag, l_linestatus) "
+                    f"dictionary plan, {len(calls[0][0][0]):,} rows x "
+                    f"{calls[0][0][1]} codes", calls[0])
+    err = check_site(site, same_aggregates, f"K2 at {site.call_site}")
+    entries.append(_entry(site, launches["grouped_aggregate"], err))
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3695,7 +4320,8 @@ def main(argv=None) -> int:
     e27, checks27 = lap("phase 27", lambda: run_phase27(dev, args.profile))
     e28, checks28 = lap("phase 28", lambda: run_phase28(dev, args.profile))
     e29, checks29 = lap("phase 29", lambda: run_phase29(dev, args.profile))
-    entries += e26 + e27 + e28 + e29
+    e30 = lap("phase 30", lambda: run_phase30(dev, args.profile))
+    entries += e26 + e27 + e28 + e29 + e30
     for name, checks in (("phase 26", checks26), ("phase 27", checks27),
                          ("phase 28", checks28), ("phase 29", checks29)):
         lap(f"{name}'s CPU route", lambda checks=checks:

@@ -412,7 +412,8 @@ def ref_pylist(col) -> list:
         if col.validity is not None:
             ints = [v if ok else None
                     for v, ok in zip(ints, np.asarray(col.validity))]
-    return [None if v is None else decimal.Decimal(v).scaleb(-d.scale)
+    exact = decimal.Context(prec=100)
+    return [None if v is None else decimal.Decimal(v).scaleb(-d.scale, exact)
             for v in ints]
 
 
@@ -426,3 +427,61 @@ def _first_diff(a, b, path="") -> str:
             if x != y:
                 return _first_diff(x, y, f"{path}[{i}]")
     return f"{path}: {a!r} != {b!r}"
+
+
+# ---- the file layer (io/cdata.py, io/ipc.py, Parquet) ----------------------
+
+def ref_and_port(batch, device="cpu"):
+    """The reference's Table of a pyarrow batch or table and the port's
+    Table of the same buffers, on `device`."""
+    import pyarrow as pa
+    from arrow_tpu.io.interop import table_from_pyarrow
+    if isinstance(batch, pa.Table):
+        batch = batch.combine_chunks().to_batches()[0] if batch.num_rows \
+            else pa.record_batch([c.combine_chunks() if c.num_chunks
+                                  else pa.array([], c.type)
+                                  for c in batch.columns],
+                                 schema=batch.schema)
+    ref = table_from_pyarrow(batch)
+    return ref, port_table(ref, device)
+
+
+def assert_tables_layouts_equal(got, want, what="", dtypes=None):
+    """Same names and rows, each column's buffers bit for bit
+    (`assert_layouts_equal`); `dtypes` maps a column to the port's type
+    where the reference's is known to be wrong."""
+    assert got.column_names == want.column_names, (what, got.column_names,
+                                                   want.column_names)
+    assert got.num_rows == want.num_rows, what
+    for name, g, w in zip(got.column_names, got.columns, want.columns):
+        assert_layouts_equal(g, w, f"{what}{name}",
+                             dtype=(dtypes or {}).get(name))
+
+
+def parquet_parts(data: bytes):
+    """(the bytes before the footer, the footer parsed by the thrift
+    codec) of a plain Parquet file."""
+    import struct
+    from arrow_tpu.io.thrift import CompactReader
+    (flen,) = struct.unpack_from("<i", data, len(data) - 8)
+    body = data[:len(data) - 8 - flen]
+    footer = CompactReader(data[len(data) - 8 - flen:len(data) - 8]) \
+        .read_struct()
+    return body, footer
+
+
+def assert_parquet_like_reference(got: bytes, want: bytes) -> None:
+    """The port's Parquet bytes against the reference's: every byte
+    before the footer equal, the footer equal apart from `created_by`,
+    where the port names itself."""
+    gb, gf = parquet_parts(got)
+    wb, wf = parquet_parts(want)
+    assert got[-4:] == want[-4:] == b"PAR1"
+    if gb != wb:
+        i = next(i for i, (a, b) in enumerate(zip(gb, wb)) if a != b) \
+            if len(gb) == len(wb) else min(len(gb), len(wb))
+        raise AssertionError(f"bytes differ at {i} of {len(gb)}, "
+                             f"{len(wb)} before the footers")
+    assert gf.pop(6) == b"arrow_tpu_torch native writer"
+    assert wf.pop(6) == b"arrow_tpu native writer"
+    assert gf == wf
