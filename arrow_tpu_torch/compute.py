@@ -5,7 +5,8 @@ reference crate's names `concat_batches` and `interleave_record_batch`.
 It is a module of its own, not `ops/__init__.py` as in the reference:
 there the flat names `filter`, `take`, `concat`, `sort`, `cast` and
 `join` replace the submodules of the same names as attributes of the
-package, so `from arrow_tpu.ops import join` gives the function.  Here
+package, so importing `join` from the reference's `ops` gives the
+function.  Here
 `arrow_tpu_torch.ops.<module>` stays the module, and users call
 `arrow_tpu_torch.compute.<kernel>`.
 

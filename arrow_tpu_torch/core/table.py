@@ -91,6 +91,10 @@ class Table:
         return len(self.columns[0]) if self.columns else 0
 
     @property
+    def num_columns(self) -> int:
+        return len(self.columns)
+
+    @property
     def column_names(self) -> List[str]:
         return self.schema.names
 

@@ -1,7 +1,8 @@
 """Interchange with the Arrow ecosystem (counterpart of arrow_tpu/io/):
 pyarrow interop, the C Data Interface (`cdata`), Arrow IPC streams and
-files (`ipc`) and Parquet (`parquet_io`, over `parquet_native` and
-`parquet_writer`).  CSV, JSON, Avro and Flight follow (ROADMAP A8)."""
+files (`ipc`), Parquet (`parquet_io`, over `parquet_native` and
+`parquet_writer`), CSV, JSON, Avro, the integration-test JSON format
+and Parquet records.  Flight follows (ROADMAP A8.5)."""
 
 from .interop import (  # noqa: F401
     column_from_pyarrow, column_to_pyarrow,
@@ -10,4 +11,9 @@ from .interop import (  # noqa: F401
 )
 from . import cdata  # noqa: F401
 from . import ipc  # noqa: F401
+from . import csv  # noqa: F401
+from . import json_io  # noqa: F401
 from . import parquet_io  # noqa: F401
+from . import avro  # noqa: F401
+from . import integration_json  # noqa: F401
+from . import records  # noqa: F401

@@ -11,7 +11,8 @@ through.  Decimal columns (cmp.py:104-178) rescale to their common
 scale through the exact host cast (ops/cast.py), then compare on the
 device: decimal32/64 as ints, decimal128/256 lexicographically over
 their limb planes from the top, the top limb signed and the lower ones
-unsigned (through the sign-flip map).
+unsigned (through the sign-flip map).  A decimal Scalar is rescaled
+exactly on the host to the column's scale instead (`_decimal_vs_scalar`).
 """
 
 from __future__ import annotations
@@ -117,11 +118,71 @@ def _limb_planes(c, k: int) -> torch.Tensor:
     return lb
 
 
+_SWAPPED = {"eq": "eq", "neq": "neq", "lt": "gt", "lt_eq": "gt_eq",
+            "gt": "lt", "gt_eq": "lt_eq"}
+
+
+def _decimal_vs_scalar(op: str, col, s: Scalar) -> PrimitiveColumn:
+    """A decimal column against a decimal Scalar: the Scalar's value is
+    rescaled on the host to the column's scale, exactly (a literal finer
+    than the scale compares through the integers around it), then the
+    column's unscaled values compare with that integer on the device
+    (pyarrow's answer; the reference raises here, ROADMAP C24)."""
+    import decimal
+    import math
+    n, dev = len(col), col.device
+    if not s.valid:
+        return PrimitiveColumn(torch.zeros(n, dtype=torch.bool, device=dev),
+                               dt.bool_, torch.zeros(n, dtype=torch.bool,
+                                                     device=dev))
+    v = s.value
+    x = decimal.Decimal(repr(v)) if isinstance(v, float) \
+        else decimal.Decimal(v)
+    t = x.scaleb(col.dtype.scale, decimal.Context(prec=200))
+    lo, hi = math.floor(t), math.ceil(t)
+    bound = {"lt": hi, "lt_eq": lo, "gt": lo, "gt_eq": hi,
+             "eq": lo, "neq": lo}[op]
+    k = max(col.limbs.shape[1] if col.dtype.name in ("decimal128",
+                                                     "decimal256") else 1,
+            (abs(bound).bit_length() + 64) // 64)
+    u = bound % (1 << (64 * k))
+    limbs = [(u >> (64 * j)) & ((1 << 64) - 1) for j in range(k)]
+    const = torch.tensor([w - (1 << 64) if w >> 63 else w for w in limbs],
+                         dtype=torch.int64, device=dev).expand(n, k)
+    if lo != hi and op in ("eq", "neq"):     # no column value equals t
+        out = torch.full((n,), op == "neq", dtype=torch.bool, device=dev)
+    else:
+        out = _limbs_compare(op, _limb_planes(col, k), const)
+    return PrimitiveColumn(out, dt.bool_, col.validity)
+
+
+def _limbs_compare(op: str, la: torch.Tensor, ra: torch.Tensor
+                   ) -> torch.Tensor:
+    """`op` over (n, k) limb planes, lexicographically from the top limb,
+    which is signed; the lower ones are unsigned (the sign-flip map)."""
+    k = la.shape[1]
+    lt = torch.zeros(la.shape[0], dtype=torch.bool, device=la.device)
+    tied = torch.ones_like(lt)
+    for j in range(k - 1, -1, -1):
+        a, b = la[:, j], ra[:, j]
+        if j < k - 1:                        # lower limbs are unsigned
+            a, b = a ^ _SIGN, b ^ _SIGN
+        lt = lt | (tied & (a < b))
+        tied = tied & (a == b)
+    return {"eq": tied, "neq": ~tied, "lt": lt, "lt_eq": lt | tied,
+            "gt": ~(lt | tied), "gt_eq": ~lt}[op]
+
+
 def _compare_decimal(op: str, lhs, rhs) -> PrimitiveColumn:
     """Decimals of any widths and scales (cmp.py:110-178)."""
     from ..core.nested import DecimalColumn
     from .cast import CastOptions, cast
     ld, rd = as_datum(lhs).dtype, as_datum(rhs).dtype
+    if ld.is_decimal and rd.is_decimal:
+        if isinstance(rhs, Scalar):
+            return _decimal_vs_scalar(op, lhs, rhs)
+        if isinstance(lhs, Scalar):
+            return _decimal_vs_scalar(_SWAPPED[op], rhs, lhs)
     if not (ld.is_decimal and rd.is_decimal):
         raise ArrowTypeError(f"cannot compare {ld!r} with {rd!r}")
     s_ = max(ld.scale, rd.scale)
@@ -141,18 +202,9 @@ def _compare_decimal(op: str, lhs, rhs) -> PrimitiveColumn:
                                mask)
     k = max(c.limbs.shape[1] if isinstance(c, DecimalColumn) else 1
             for c in (lc, rc))
-    la, ra = _limb_planes(lc, k), _limb_planes(rc, k)
-    lt = torch.zeros(la.shape[0], dtype=torch.bool, device=la.device)
-    tied = torch.ones_like(lt)
-    for j in range(k - 1, -1, -1):
-        a, b = la[:, j], ra[:, j]
-        if j < k - 1:                        # lower limbs are unsigned
-            a, b = a ^ _SIGN, b ^ _SIGN
-        lt = lt | (tied & (a < b))
-        tied = tied & (a == b)
-    out = {"eq": tied, "neq": ~tied, "lt": lt, "lt_eq": lt | tied,
-           "gt": ~(lt | tied), "gt_eq": ~lt}[op]
-    return PrimitiveColumn(out, dt.bool_, mask)
+    return PrimitiveColumn(_limbs_compare(op, _limb_planes(lc, k),
+                                          _limb_planes(rc, k)), dt.bool_,
+                           mask)
 
 
 _SIGN = -(1 << 63)

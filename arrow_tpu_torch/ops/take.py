@@ -92,9 +92,8 @@ def _take(values: Column, idx: torch.Tensor,
         return DictionaryColumn(values.codes[idx], values.values, valid,
                                 ordered=bool(values.dtype.ordered))
     if isinstance(values, StringColumn):
-        offs, src = range_gather(values.offsets, idx, values.data.shape[0])
-        return StringColumn(offs, values.data.index_select(0, src),
-                            values.dtype, valid)
+        offs, data = _gather_bytes(values.offsets, values.data, idx)
+        return StringColumn(offs, data, values.dtype, valid)
     if isinstance(values, (ListColumn, MapColumn)):
         child = values.child if isinstance(values, ListColumn) \
             else values.entries
@@ -163,17 +162,66 @@ def range_gather(offsets: torch.Tensor, idx: torch.Tensor, limit: int
     jumps and a cumsum give the map; reading its length is the one host
     sync.  Positions are int32 while the output and the source (`limit`
     elements) fit in it, else int64."""
+    starts, ends, new_offs = _row_ranges(offsets, idx)
+    total = int(new_offs[-1])              # the one host sync
+    return new_offs.to(offsets.dtype), _source_index(starts, ends, new_offs,
+                                                     total, limit)
+
+
+def _row_ranges(offsets: torch.Tensor, idx: torch.Tensor):
+    """(int64 starts, ends, new offsets) of the rows `idx`."""
     starts = offsets.index_select(0, idx).to(torch.int64)
     ends = offsets.index_select(0, idx + 1).to(torch.int64)
     new_offs = torch.zeros(idx.shape[0] + 1, dtype=torch.int64,
                            device=idx.device)
     torch.cumsum(ends - starts, 0, out=new_offs[1:])
-    total = int(new_offs[-1])              # the one host sync
+    return starts, ends, new_offs
+
+
+def _source_index(starts, ends, new_offs, total: int, limit: int
+                  ) -> torch.Tensor:
+    """range_gather's map: the source position of each of the `total`
+    output elements."""
     ix = torch.int32 if max(total, limit) < INDEX32_LIMIT else torch.int64
     prev_end = torch.cat([ends.new_ones(1), ends[:-1]])
-    step = torch.ones(total + 1, dtype=ix, device=idx.device)
+    step = torch.ones(total + 1, dtype=ix, device=starts.device)
     step.index_add_(0, new_offs[:-1], (starts - prev_end).to(ix))
-    return new_offs.to(offsets.dtype), torch.cumsum(step[:total], 0, dtype=ix)
+    return torch.cumsum(step[:total], 0, dtype=ix)
+
+
+# output bytes a string take gathers at once: range_gather's source index
+# and its step buffer take 8-16 bytes an output byte
+GATHER_PIECE = 1 << 28
+
+
+def _gather_bytes(offsets: torch.Tensor, data: torch.Tensor,
+                  idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(new offsets, bytes) of the string rows `idx`: one range gather
+    (one host sync) up to GATHER_PIECE output bytes, else one a piece of
+    rows holding about that many (a row longer than a piece is a piece),
+    written into one output, with one more sync for the piece bounds.
+    Past 2^31 bytes int32 offsets raise."""
+    starts, ends, new_offs = _row_ranges(offsets, idx)
+    total = int(new_offs[-1])
+    if offsets.dtype == torch.int32 and total > torch.iinfo(torch.int32).max:
+        raise ArrowInvalid(f"{total} bytes overflow int32 offsets: use a "
+                           "large string type")
+    limit = data.shape[0]
+    if total <= GATHER_PIECE:
+        src = _source_index(starts, ends, new_offs, total, limit)
+        return new_offs.to(offsets.dtype), data.index_select(0, src)
+    targets = torch.arange(GATHER_PIECE, total, GATHER_PIECE,
+                           device=idx.device)
+    cuts = torch.searchsorted(new_offs[1:], targets, right=True).tolist()
+    rows = sorted({0, idx.shape[0], *cuts})
+    bounds = new_offs[rows].tolist()
+    out = torch.empty(total, dtype=torch.uint8, device=data.device)
+    for (a, b), (lo, hi) in zip(zip(rows, rows[1:]),
+                                zip(bounds, bounds[1:])):
+        src = _source_index(starts[a:b], ends[a:b], new_offs[a:b + 1] - lo,
+                            hi - lo, limit)
+        torch.index_select(data, 0, src, out=out[lo:hi])
+    return new_offs.to(offsets.dtype), out
 
 
 def _take_run(values: RunEndColumn, idx: torch.Tensor,

@@ -12,7 +12,10 @@ decode_varlen_rows and the string bindings, native.py:28-86,197-290,
 LZ4 frames and blocks, Parquet's RLE / bit-packed hybrid, PLAIN and
 DELTA byte arrays, DELTA_BINARY_PACKED, snappy, XXH64 and the
 split-block bloom filter, and the C-owned memory of the C Data
-Interface (native.py:96-130,268-430,797-819).
+Interface (native.py:96-130,268-430,797-819); and the text formats'
+engines: CSV indexing, parsing and formatting, the JSON tape and
+unescaper, Avro's block decoder and zigzag varints, and the byte-range
+gather of Variant (native.py:124-142,651-663,694-870).
 
 The library is `native/libhostcodec.so` at the repository's root, built
 by `make -C native` at first use (and again when hostcodec.cpp is newer
@@ -48,7 +51,9 @@ __all__ = ["intern_varlen", "gather_varlen", "argsort_varlen",
            "plain_byte_array_decode", "plain_byte_array_encode",
            "delta_binary_packed_decode", "delta_byte_array_build",
            "snappy_decompress", "snappy_compress", "xxhash64",
-           "sbbf_insert", "sbbf_check", "cdata_malloc", "cdata_release"]
+           "sbbf_insert", "sbbf_check", "cdata_malloc", "cdata_release",
+           "csv_lib", "json_tape", "json_unescape", "decode_zigzag_longs",
+           "avro_decode_block", "gather_ranges", "variant_get_path"]
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
 _SO = _NATIVE_DIR / "libhostcodec.so"
@@ -364,6 +369,8 @@ def _bind_io(lib: ctypes.CDLL) -> None:
     i32p, i64p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int64)
     u32p = ctypes.POINTER(ctypes.c_uint32)
     u64, u64p = ctypes.c_uint64, ctypes.POINTER(ctypes.c_uint64)
+    u8, f64p = ctypes.c_uint8, ctypes.POINTER(ctypes.c_double)
+    vpp = ctypes.POINTER(ctypes.c_void_p)
     sigs = {
         "pack_bits": ([u8p, i64, u8p], None),
         "unpack_bits": ([u8p, i64, u8p], None),
@@ -384,6 +391,29 @@ def _bind_io(lib: ctypes.CDLL) -> None:
         "sbbf_insert": ([u8p, i64, u64p, i64], None),
         "sbbf_check": ([u8p, i64, u64p, i64, u8p], None),
         "cdata_malloc": ([i64], ctypes.c_void_p),
+        # the text formats (native.py:124-142,651-663,694-870)
+        "csv_count_seps": ([u8p, i64, u8], i64),
+        "csv_index": ([u8p, i64, u8, u8, i64p, i64p, u8p, i64, i64p, i64p],
+                      i64),
+        "csv_extract": ([u8p, i64p, i64p, u8p, i64, u8, i64p, u8p], i64),
+        "csv_parse_i64": ([u8p, i64p, i64p, i64, i64p, u8p], i64),
+        "csv_parse_f64": ([u8p, i64p, i64p, i64, f64p, u8p], i64),
+        "csv_parse_bool": ([u8p, i64p, i64p, i64, u8p, u8p], i64),
+        "csv_parse_timestamp": ([u8p, i64p, i64p, i64, i64, ctypes.c_int32,
+                                 i64p, u8p], i64),
+        "csv_format_i64": ([i64p, i64, i64, u8p], None),
+        "csv_format_timestamp": ([i64p, i64, i64, i64, i64, u8p], None),
+        "csv_join_rows": ([i64, vpp, i64p, i64, u8, u8p], i64),
+        "json_join_rows": ([i64, vpp, i64p, i64, u8p], i64),
+        "json_tape": ([u8p, i64, u8p, i64p, i64p, u8p, i64], i64),
+        "json_unescape": ([u8p, i64p, i64p, u8p, i64, i64p, u8p], i64),
+        "decode_zigzag_longs": ([u8p, i64, i64, i64, i64p], i64),
+        "avro_decode_block": ([u8p, i64, i64, u8p, i32p, i32p, i32p, i32p,
+                               ctypes.c_int32, ctypes.c_int32,
+                               ctypes.c_int32, i64p, i64p, vpp, vpp], i64),
+        "gather_ranges": ([u8p, i64p, i64p, i64p, i64, u8p], None),
+        "variant_get_path": ([u8p, i64p, u8p, i64p, i64, i64, u8p, i64p,
+                              i64p, u8p, i64p, i64p], i64),
     }
     for name, (args, res) in sigs.items():
         f = getattr(lib, name)
@@ -590,3 +620,137 @@ def cdata_release(kind: str) -> int:
     ArrowSchema (`kind` "schema") or ArrowArray ("array")."""
     f = getattr(_library(), f"cdata_release_{kind}")
     return ctypes.cast(f, ctypes.c_void_p).value
+
+
+# ---- the text formats: CSV, JSON, Avro, Variant (native.py:124-142,
+# 651-663,694-870) ------------------------------------------------------
+
+def _i64p(a: np.ndarray):
+    return _ptr(a, ctypes.c_int64) if len(a) \
+        else _ptr(np.zeros(1, np.int64), ctypes.c_int64)
+
+
+def _i32p(a: np.ndarray):
+    return _ptr(a, ctypes.c_int32) if len(a) \
+        else _ptr(np.zeros(1, np.int32), ctypes.c_int32)
+
+
+def _f64p(a: np.ndarray):
+    return _ptr(a, ctypes.c_double) if len(a) \
+        else _ptr(np.zeros(1, np.float64), ctypes.c_double)
+
+
+def csv_lib() -> ctypes.CDLL:
+    """The library with the CSV engine bound: the separator count, the
+    RFC 4180 indexer, the typed field parsers, the field extractor, the
+    integer and civil-calendar formatters and the row joiners.  A reader
+    calls it on its own thread before it starts any other."""
+    return _library()
+
+
+def json_tape(data: bytes):
+    """-> (types u8, starts i64, ends i64, escs u8): the token tape of a
+    JSON buffer."""
+    lib = _library()
+    src = _src(data)
+    cap = max(len(data) // 2 + 16, 64)
+    while True:
+        types = np.zeros(cap, np.uint8)
+        starts = np.zeros(cap, np.int64)
+        ends = np.zeros(cap, np.int64)
+        escs = np.zeros(cap, np.uint8)
+        nt = lib.json_tape(_u8(src), len(src), _u8(types), _i64p(starts),
+                           _i64p(ends), _u8(escs), cap)
+        if nt == -1:
+            cap *= 2
+            continue
+        if nt == -2:
+            raise ValueError("malformed JSON")
+        return types[:nt], starts[:nt], ends[:nt], escs[:nt]
+
+
+def json_unescape(data: np.ndarray, starts, ends, escs):
+    """-> (offsets i64, bytes u8): the tape's string tokens unescaped."""
+    starts = np.ascontiguousarray(starts, np.int64)
+    ends = np.ascontiguousarray(ends, np.int64)
+    escs = np.ascontiguousarray(escs, np.uint8)
+    n = len(starts)
+    cap = int((ends - starts).sum()) + 4 * max(n, 1)
+    offs = np.zeros(n + 1, np.int64)
+    out = np.zeros(max(cap, 1), np.uint8)
+    total = _library().json_unescape(_u8(_src(data)), _i64p(starts),
+                                     _i64p(ends), _u8(escs), n,
+                                     _i64p(offs), _u8(out))
+    if total < 0:
+        raise ValueError("malformed JSON string escape")
+    return offs, out[:total]
+
+
+def decode_zigzag_longs(data: bytes, pos: int, count: int):
+    """-> (values int64[count], new_pos): Avro's zigzag varints."""
+    arr = _src(data)
+    out = np.zeros(count, np.int64)
+    new_pos = _library().decode_zigzag_longs(_u8(arr), len(arr), pos, count,
+                                             _i64p(out))
+    if new_pos < 0:
+        raise ValueError("truncated avro varint data")
+    return out, int(new_pos)
+
+
+def avro_decode_block(payload: bytes, row_count: int, prog, fill: bool,
+                      vals=None, lens=None):
+    """One pass of the native Avro block decoder over `prog` = (kind u8[],
+    extra i32[], cstart i32[], ccount i32[], cidx i32[], root):
+    fill=False counts each node's occurrences and bytes, fill=True
+    writes into the caller's numpy buffers `vals` / `lens`.  ->
+    (consumed bytes, occurrences i64[nodes], bytes i64[nodes]); consumed
+    < 0 means malformed."""
+    lib = _library()
+    kind, extra, cstart, ccount, cidx, root = prog
+    n_nodes = len(kind)
+    data = _src(payload)
+    occ = np.zeros(n_nodes, np.int64)
+    nb = np.zeros(n_nodes, np.int64)
+    valp = (ctypes.c_void_p * n_nodes)()
+    lenp = (ctypes.c_void_p * n_nodes)()
+    if fill:
+        for i in range(n_nodes):
+            if vals[i] is not None:
+                valp[i] = vals[i].ctypes.data
+            if lens[i] is not None:
+                lenp[i] = lens[i].ctypes.data
+    pos = lib.avro_decode_block(
+        _u8(data), len(data), row_count, _u8(kind), _i32p(extra),
+        _i32p(cstart), _i32p(ccount), _i32p(cidx), n_nodes, root,
+        1 if fill else 0, _i64p(occ), _i64p(nb), valp, lenp)
+    return int(pos), occ, nb
+
+
+def gather_ranges(src: np.ndarray, starts: np.ndarray, lens: np.ndarray,
+                  out_offs: np.ndarray, out: np.ndarray) -> None:
+    """Copy each (start, len) byte range of src to out[out_offs[i]:]."""
+    _library().gather_ranges(
+        _u8(src), _i64p(np.ascontiguousarray(starts, np.int64)),
+        _i64p(np.ascontiguousarray(lens, np.int64)),
+        _i64p(np.ascontiguousarray(out_offs, np.int64)), len(starts),
+        _u8(out))
+
+
+def variant_get_path(vals: np.ndarray, voffs: np.ndarray, metas: np.ndarray,
+                     moffs: np.ndarray, kinds: np.ndarray, idxs: np.ndarray,
+                     kstarts: np.ndarray, keys: np.ndarray, n_steps: int
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Walk one key / index path through each of the n Variant values
+    (packed `vals` at `voffs`, their metadata `metas` at `moffs`) ->
+    (start, length) of each row's leaf in `vals`; length -1 where the
+    path is missing or null."""
+    n = len(voffs) - 1
+    out_start = np.zeros(n, np.int64)
+    out_len = np.zeros(n, np.int64)
+    rc = _library().variant_get_path(
+        _u8(vals), _i64p(voffs), _u8(metas), _i64p(moffs), n, n_steps,
+        _u8(kinds), _i64p(idxs), _i64p(kstarts), _u8(keys),
+        _i64p(out_start), _i64p(out_len))
+    if rc != 0:
+        raise ValueError(f"malformed variant at row {-rc - 1}")
+    return out_start, out_len

@@ -224,6 +224,30 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      the phase and its lowest reading after a step; then K1 at the four
      scan sites (row group 0) and K2 at Q1's group_by against their plain
      versions.  Phase 30 is not traced with --profile (host-bound).
+ 31. TPC-H SF1 through the text formats: lineitem (6,001,215 rows, 16
+     columns) and orders (one row per generated order, 9 columns) made
+     on the card in the types the CSV reader gives dbgen's text (money
+     Float64, dates Date32, flags and text utf8; `tpch_tables`):
+     write_csv with '|' read back by pyarrow.csv equal to the source and
+     by read_csv onto the card equal to the source; the same for
+     write_json (lines) against pyarrow.json and read_json; write_avro /
+     read_avro of the first 100,000 rows (cut: the writer encodes a
+     Python value a cell) equal to the source; checkpoint_table /
+     restore_table.  Each step's seconds on the host clock (synced)
+     and the bytes written.
+ 32. TPC-H SF10 as SQL text: lineitem (59,986,052 rows), orders (one row
+     per generated order), customer (1,500,000) and nation (25) at every
+     column, made on the card (money Float64, flags, modes, priorities,
+     clerks and segments Dictionary<Int32, Utf8>, the comments a join
+     repeats large_utf8); Q1, Q3, Q6 and Q10 (`P32_QUERIES`) through
+     execute_sql, each run with the launch counts at 0 (every K1 call
+     on the card launched once, K1 launched), held to pyarrow over host
+     copies (keys, counts and row order exactly, float sums within rtol
+     1e-9), then timed (CUDA events, tables resident) with its peak
+     memory; Q1 at 1M rows on the CPU route equal to the card's; then
+     K1 at Q6's WHERE, Q1's and Q3's sort-plan run starts and Q3's
+     joins against its plain version.  Q1's float sums take the sort
+     plan: K2 sums integers only, so phase 32 launches no K2.
 
 `--profile` also traces the dictionary and config-4 group-bys, the
 config-5 joins on both plans, one streamed chunk, config 2 (eager and
@@ -251,7 +275,8 @@ the group_by and filter_table calls of steps 25-27, the group_by and
 rank calls of step 28, Q13's filter_table and group_by and Q22's
 group_by in step 29, and in step 30 the calls each scan site made over
 its scan (one a row group; the scan's launch count equals the two
-sites' calls) and the launches of Q1's group_by.
+sites' calls) and the launches of Q1's group_by; in step 32 the calls
+of the query that holds the site.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object of per-kernel results; the last line is the JSON result
@@ -262,6 +287,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -3768,22 +3794,21 @@ def _day_scalar(day: str):
 
 def q6_predicate(t):
     """Q6's WHERE over a table of l_shipdate, l_discount, l_quantity: the
-    dates through the port's comparisons, the decimals by their low
-    limbs on the card (a Decimal128(15, 2)'s unscaled value; the port's
-    decimal comparisons rescale through host Python ints, ROADMAP A7.8,
-    and take no Scalar, as in the reference)."""
-    from arrow_tpu_torch import dtypes as dt
-    from arrow_tpu_torch.core.column import PrimitiveColumn
+    dates and the Decimal128(15, 2) columns through the port's public
+    comparisons (a decimal Scalar is rescaled on the host, ROADMAP
+    C24)."""
+    from decimal import Decimal
+    from arrow_tpu_torch.core.datum import Scalar
     from arrow_tpu_torch.ops import boolean as pb, cmp
-    ship = t.column("l_shipdate")
-    disc = _limb_ints(t.column("l_discount"))
-    qty = _limb_ints(t.column("l_quantity"))
+    ship, disc = t.column("l_shipdate"), t.column("l_discount")
+    qty = t.column("l_quantity")
+    cents = lambda c, col: Scalar(Decimal(c).scaleb(-2), col.dtype)
     lo, hi = P30_Q6_DISCOUNT
     m = pb.and_(cmp.gt_eq(ship, _day_scalar(P30_Q6_DATES[0])),
                 cmp.lt(ship, _day_scalar(P30_Q6_DATES[1])))
-    return pb.and_(m, PrimitiveColumn(
-        (disc >= lo) & (disc <= hi) & (qty < 100 * P30_Q6_QUANTITY),
-        dt.bool_))
+    m = pb.and_(m, pb.and_(cmp.gt_eq(disc, cents(lo, disc)),
+                           cmp.lt_eq(disc, cents(hi, disc))))
+    return pb.and_(m, cmp.lt(qty, cents(100 * P30_Q6_QUANTITY, qty)))
 
 
 def q1_predicate(t):
@@ -3977,17 +4002,17 @@ def p30_calls(table, g, dev, meter, tmp, rows: int = P30_ROW_GROUP,
     last = int(back.column("l_comment").offsets[-1])
     if last >= 2 ** 31:
         raise AssertionError(f"{what}: l_comment's last offset {last}")
-    real, seen = tk.range_gather, []
+    real, seen = tk._source_index, []
 
-    def spy(offsets, idx, limit):
-        out = real(offsets, idx, limit)
-        seen.append((limit, int(out[0][-1]), out[1].dtype))
+    def spy(starts, ends, new_offs, total, limit):
+        out = real(starts, ends, new_offs, total, limit)
+        seen.append((limit, total, out.dtype))
         return out
-    tk.range_gather = spy
+    tk._source_index = spy
     try:
         kept = filter_table(back, q1_predicate(back))
     finally:
-        tk.range_gather = real
+        tk._source_index = real
     print(f"{what}: l_comment's last offset {last:,} (< 2^31); "
           f"filter_table of the read-back table keeps {kept.num_rows:,} rows;"
           f" range_gather (limit, total, index): {seen} (INDEX32_LIMIT "
@@ -4210,6 +4235,629 @@ def run_phase30(dev, profile: bool):
     return entries
 
 
+# ---- phases 31-32: TPC-H through the text formats, and as SQL --------------
+
+P31_ROWS = 6_001_215               # TPC-H SF1 lineitem (spec 4.2.5)
+P31_AVRO_ROWS = 100_000            # write_avro: a Python value a cell (cut)
+P31_CUSTOMERS = 150_000            # SF1 customer (SF * 150,000)
+P32_ROWS = 59_986_052              # TPC-H SF10 lineitem
+P32_CUSTOMERS = 1_500_000          # SF10 customer
+P32_CPU_ROWS = 1_000_000           # Q1 on the CPU route (cut)
+P32_RTOL = 1e-9                    # float sums: the card adds in another order
+P32_SEGMENTS = ("AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY",
+                "HOUSEHOLD")
+P32_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                  "5-LOW")
+P32_NATIONS = (                    # spec 4.2.3: (n_name, n_regionkey)
+    ("ALGERIA", 0), ("ARGENTINA", 1), ("BRAZIL", 1), ("CANADA", 1),
+    ("EGYPT", 4), ("ETHIOPIA", 0), ("FRANCE", 3), ("GERMANY", 3),
+    ("INDIA", 2), ("INDONESIA", 2), ("IRAN", 4), ("IRAQ", 4), ("JAPAN", 2),
+    ("JORDAN", 4), ("KENYA", 0), ("MOROCCO", 0), ("MOZAMBIQUE", 0),
+    ("PERU", 1), ("CHINA", 2), ("ROMANIA", 3), ("SAUDI ARABIA", 4),
+    ("VIETNAM", 2), ("RUSSIA", 3), ("UNITED KINGDOM", 3),
+    ("UNITED STATES", 1))
+
+
+# TPC-H Q1, Q3, Q6 and Q10 (spec 2.4) in sql.py's grammar: JOIN ... ON for
+# the comma joins, the tables in the spec's FROM order (the smaller side
+# on the left, so the wide joins repeat the fewest bytes; a join keeps
+# the left key only, so Q3 names l_orderkey by the o_orderkey equal to
+# it), and each date bound as its day number (sql.py takes
+# CAST('1998-09-02' AS date32) too, but casts that literal once per
+# row).
+P32_QUERIES = {
+    # l_shipdate <= date '1998-12-01' - interval '90' day (1998-09-02)
+    "Q1": "SELECT l_returnflag, l_linestatus, SUM(l_quantity) AS sum_qty, "
+          "SUM(l_extendedprice) AS sum_base_price, "
+          "SUM(l_extendedprice * (1 - l_discount)) AS sum_disc_price, "
+          "SUM(l_extendedprice * (1 - l_discount) * (1 + l_tax)) "
+          "AS sum_charge, AVG(l_quantity) AS avg_qty, "
+          "AVG(l_extendedprice) AS avg_price, AVG(l_discount) AS avg_disc, "
+          "COUNT(*) AS count_order FROM lineitem "
+          f"WHERE l_shipdate <= {_days(1998, 9, 2)} "
+          "GROUP BY l_returnflag, l_linestatus "
+          "ORDER BY l_returnflag, l_linestatus",
+    # o_orderdate < date '1995-03-15' and l_shipdate > date '1995-03-15'
+    "Q3": "SELECT o_orderkey AS l_orderkey, "
+          "SUM(l_extendedprice * (1 - l_discount)) AS revenue, o_orderdate, "
+          "o_shippriority FROM customer "
+          "JOIN orders ON c_custkey = o_custkey "
+          "JOIN lineitem ON o_orderkey = l_orderkey "
+          "WHERE c_mktsegment = 'BUILDING' "
+          f"AND o_orderdate < {_days(1995, 3, 15)} "
+          f"AND l_shipdate > {_days(1995, 3, 15)} "
+          "GROUP BY o_orderkey, o_orderdate, o_shippriority "
+          "ORDER BY revenue DESC, o_orderdate LIMIT 10",
+    # Q4 without its EXISTS subquery (the grammar has none): the orders
+    # of [1993-07-01, 1993-10-01) counted by priority, a dictionary key;
+    # COUNT(*) is an aggregate K2 covers, so this GROUP BY takes the
+    # dictionary plan
+    "Q4": "SELECT o_orderpriority, COUNT(*) AS order_count FROM orders "
+          f"WHERE o_orderdate >= {_days(1993, 7, 1)} "
+          f"AND o_orderdate < {_days(1993, 10, 1)} "
+          "GROUP BY o_orderpriority ORDER BY o_orderpriority",
+    # l_shipdate in [1994-01-01, 1995-01-01), discount 0.06 +- 0.01
+    "Q6": "SELECT SUM(l_extendedprice * l_discount) AS revenue "
+          f"FROM lineitem WHERE l_shipdate >= {_days(1994, 1, 1)} "
+          f"AND l_shipdate < {_days(1995, 1, 1)} "
+          "AND l_discount BETWEEN 0.05 AND 0.07 AND l_quantity < 24",
+    # o_orderdate in [1993-10-01, 1994-01-01)
+    "Q10": "SELECT c_custkey, c_name, "
+           "SUM(l_extendedprice * (1 - l_discount)) AS revenue, c_acctbal, "
+           "n_name, c_address, c_phone, c_comment FROM nation "
+           "JOIN customer ON n_nationkey = c_nationkey "
+           "JOIN orders ON c_custkey = o_custkey "
+           "JOIN lineitem ON o_orderkey = l_orderkey "
+           f"WHERE o_orderdate >= {_days(1993, 10, 1)} "
+           f"AND o_orderdate < {_days(1994, 1, 1)} "
+           "AND l_returnflag = 'R' "
+           "GROUP BY c_custkey, c_name, c_acctbal, c_phone, n_name, "
+           "c_address, c_comment ORDER BY revenue DESC LIMIT 20",
+}
+
+
+def _ascii_rows(parts, dev):
+    """A utf8 column of fixed-width rows: `parts` are bytes (the same in
+    every row) or (n, w) uint8 tensors, joined left to right."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import StringColumn
+    n = next(p.shape[0] for p in parts if isinstance(p, torch.Tensor))
+    cols = [p if isinstance(p, torch.Tensor) else torch.tensor(
+        list(p), dtype=torch.uint8, device=dev).expand(n, len(p))
+        for p in parts]
+    rows = torch.cat(cols, 1)
+    w = rows.shape[1]
+    return StringColumn(torch.arange(n + 1, dtype=torch.int32, device=dev)
+                        * w, rows.reshape(-1).contiguous(), dt.utf8)
+
+
+def _digits(v: torch.Tensor, width: int) -> torch.Tensor:
+    """(n, width) ASCII digits of v, zero-padded."""
+    p = 10 ** torch.arange(width - 1, -1, -1, device=v.device)
+    return (48 + (v[:, None] // p) % 10).to(torch.uint8)
+
+
+def _text_column(pool, n: int, lo: int, hi: int, salt: int, dev, large):
+    """n comments of lo-hi bytes cut from the text pool on the card."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import StringColumn
+    lens = lo + _umod(splitmix(n, salt, dev), hi - lo + 1)
+    starts = _umod(splitmix(n, salt + n, dev), pool.shape[0] - hi)
+    offs, data = _cut_device(pool, starts, lens)
+    if large:
+        return StringColumn(offs, data, dt.large_utf8)
+    return StringColumn(offs.to(torch.int32), data, dt.utf8)
+
+
+def tpch_tables(n: int, customers: int, dev, text: bool,
+                pool_bytes: int = P30_POOL_BYTES, seed: int = SEED):
+    """TPC-H's lineitem, orders, customer and nation at every column of
+    the spec (1.4.1), made on the card, in the types the CSV reader gives
+    dbgen's text: the money columns Float64 (the generator's cents over
+    100), keys Int64, l_linenumber and o_shippriority Int32, dates
+    Date32.  lineitem is phase 30's (`tpch_lineitem16`); orders holds
+    one row per order of its generator (its key, its lines' status F, O
+    or P, its lines' total price, its first line's order date),
+    o_custkey over the customers not divisible by 3 (4.2.3); customer
+    and nation by 4.2.3's rules, the text cut from the pool.  With
+    `text`, the flags, modes, priorities, clerks and segments are utf8
+    (as read from text) and every comment utf8; else they are
+    Dictionary<Int32, Utf8> and the comments that a join repeats past
+    2^31 bytes (o_, c_ and n_comment) large_utf8.  Every field is
+    nullable, as the readers make them.  Returns the tables and the
+    generator's integers."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import (DictionaryColumn,
+                                             PrimitiveColumn, StringColumn)
+    from arrow_tpu_torch.core.table import Table
+    from arrow_tpu_torch.ops.strings import dictionary_decode
+    pool = torch.from_numpy(tpch_text_pool(np.random.default_rng(seed + 1),
+                                           pool_bytes)).to(dev)
+    base, g = tpch_lineitem16(n, dev, pool_bytes, seed)
+
+    def f64(cents):
+        return PrimitiveColumn(cents.to(torch.float64) / 100, dt.float64)
+
+    def words(ws, codes):
+        col = DictionaryColumn(codes.to(torch.int32),
+                               StringColumn.from_pylist(list(ws), device=dev))
+        return dictionary_decode(col) if text else col
+
+    def table(cols):
+        return Table(list(cols.values()), dt.Schema(tuple(
+            dt.Field(k, c.dtype) for k, c in cols.items())))
+
+    li = {f.name: c for f, c in zip(base.schema.fields, base.columns)}
+    for k in ("l_quantity", "l_extendedprice", "l_discount", "l_tax"):
+        li[k] = f64(g[k])
+    if text:
+        for k in ("l_returnflag", "l_linestatus", "l_shipinstruct",
+                  "l_shipmode"):
+            li[k] = dictionary_decode(li[k])
+    lineitem = table(li)
+    del base, li
+
+    lines = g["lines"]
+    m = lines.shape[0]
+    order = torch.repeat_interleave(torch.arange(m, device=dev), lines,
+                                    output_size=n)
+    first = torch.cumsum(lines, 0) - lines
+    open_ = torch.zeros(m, dtype=torch.int64, device=dev).index_add_(
+        0, order, g["status"].to(torch.int64))
+    status = torch.where(open_ == 0, 0, torch.where(open_ == lines, 1, 2))
+    charge = torch.zeros(m, dtype=torch.int64, device=dev).index_add_(
+        0, order, g["l_extendedprice"] * (100 + g["l_tax"])
+        * (100 - g["l_discount"]))
+    raw, _, _ = tpch_dates(n, dev)
+    k3 = _umod(splitmix(m, 16 * n, dev), 2 * customers // 3)
+    clerks = max(n // 6_000, 1)                 # SF * 1,000 (4.2.3)
+    clerk_names = _ascii_rows([b"Clerk#", _digits(
+        torch.arange(1, clerks + 1, device=dev), 9)], dev)
+    clerk = DictionaryColumn(_umod(splitmix(m, 17 * n, dev), clerks)
+                             .to(torch.int32), clerk_names)
+    orders = table({
+        "o_orderkey": PrimitiveColumn(g["okeys"], dt.int64),
+        "o_custkey": PrimitiveColumn(3 * (k3 // 2) + 1 + k3 % 2, dt.int64),
+        "o_orderstatus": words("FOP", status),
+        "o_totalprice": f64((charge + 5_000) // 10_000),
+        "o_orderdate": PrimitiveColumn(raw["o_orderdate"][first], dt.date32),
+        "o_orderpriority": words(P32_PRIORITIES,
+                                 _umod(splitmix(m, 18 * n, dev), 5)),
+        "o_clerk": dictionary_decode(clerk) if text else clerk,
+        "o_shippriority": PrimitiveColumn(
+            torch.zeros(m, dtype=torch.int32, device=dev), dt.int32),
+        "o_comment": _text_column(pool, m, 19, 78, 19 * n, dev, not text)})
+    del order, first, open_, charge, raw
+
+    nc = customers
+    key = torch.arange(1, nc + 1, device=dev)
+    nation = _umod(splitmix(nc, 20 * n, dev), 25)
+    dash = b"-"
+    phone = [_digits(nation + 10, 2), dash,
+             _digits(100 + _umod(splitmix(nc, 21 * n, dev), 900), 3), dash,
+             _digits(100 + _umod(splitmix(nc, 22 * n, dev), 900), 3), dash,
+             _digits(1000 + _umod(splitmix(nc, 23 * n, dev), 9000), 4)]
+    customer = table({
+        "c_custkey": PrimitiveColumn(key, dt.int64),
+        "c_name": _ascii_rows([b"Customer#", _digits(key, 9)], dev),
+        "c_address": _text_column(pool, nc, 10, 40, 24 * n, dev, False),
+        "c_nationkey": PrimitiveColumn(nation, dt.int64),
+        "c_phone": _ascii_rows(phone, dev),
+        "c_acctbal": f64(_umod(splitmix(nc, 25 * n, dev), 1_099_999)
+                         - 99_999),
+        "c_mktsegment": words(P32_SEGMENTS,
+                              _umod(splitmix(nc, 26 * n, dev), 5)),
+        "c_comment": _text_column(pool, nc, 29, 116, 27 * n, dev,
+                                  not text)})
+    nations = table({
+        "n_nationkey": PrimitiveColumn(torch.arange(25, device=dev),
+                                       dt.int64),
+        "n_name": StringColumn.from_pylist([a for a, _ in P32_NATIONS],
+                                           device=dev),
+        "n_regionkey": PrimitiveColumn(torch.tensor(
+            [b for _, b in P32_NATIONS], device=dev), dt.int64),
+        "n_comment": _text_column(pool, 25, 31, 114, 28 * n, dev,
+                                  not text)})
+    return {"lineitem": lineitem, "orders": orders, "customer": customer,
+            "nation": nations}, g
+
+
+def _arrow(t, names=None):
+    """Columns of a port table as a pyarrow Table on the host (one copy
+    a buffer), dictionaries decoded."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.table import Table
+    from arrow_tpu_torch.io.interop import table_to_pyarrow
+    if names is not None:
+        fields = {f.name: f for f in t.schema.fields}
+        t = Table([t.column(k) for k in names],
+                  dt.Schema(tuple(fields[k] for k in names)))
+    b = table_to_pyarrow(t)
+    cols = [pc.cast(c, c.type.value_type) if pa.types.is_dictionary(c.type)
+            else c for c in b.columns]
+    return pa.table(cols, names=b.schema.names)
+
+
+def _valid_masks_dropped(t):
+    """`t` with each all-true validity mask dropped (a reader's cast may
+    add one; its rows are the same)."""
+    from arrow_tpu_torch.core.table import Table
+    cols = [c.with_validity(None) if c.validity is not None
+            and bool(c.validity.all()) else c for c in t.columns]
+    return Table(cols, t.schema)
+
+
+def p31_calls(tables: dict, dev, meter, tmp, avro_rows: int = P31_AVRO_ROWS):
+    """Phase 31's steps for each table: write_csv with '|', pyarrow.csv
+    reads the text back equal to the source and read_csv onto the card
+    equal to the source; the same with write_json (lines) against
+    pyarrow.json (dates read as text, then cast); write_avro / read_avro
+    of the first `avro_rows` rows held to the source; checkpoint_table /
+    restore_table.  Each step timed on the host clock (synced) by
+    `meter`; returns the bytes written."""
+    import io
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.csv as pacsv
+    import pyarrow.json as pajson
+    from arrow_tpu_torch.io import avro, checkpoint, csv, json_io
+    codec = "lz4"
+    what = meter.what
+    sizes = {}
+    for name, t in tables.items():
+        src = _arrow(t)
+        types = src.schema
+
+        def same_arrow(got, step):
+            got = got.combine_chunks()
+            if not got.equals(src):
+                raise AssertionError(f"{what}: {name} {step} differs from "
+                                     "the source")
+
+        buf = io.BytesIO()
+        meter.host(f"{name} write_csv",
+                   lambda: csv.WriterBuilder(delimiter="|").write(buf, t))
+        data = buf.getvalue()
+        sizes[f"{name} CSV"] = len(data)
+        same_arrow(meter.host(f"{name} pyarrow.csv reads", lambda: (
+            pacsv.read_csv(io.BytesIO(data), parse_options=pacsv.ParseOptions(
+                delimiter="|"), convert_options=pacsv.ConvertOptions(
+                column_types=types)))), "CSV read by pyarrow")
+        got = meter.host(f"{name} read_csv", lambda: csv.read_csv(
+            data, t.schema, delimiter="|", device=dev))
+        _same_table(got, t, f"{what}: {name} read_csv")
+        del data, got
+
+        buf = io.BytesIO()
+        meter.host(f"{name} write_json", lambda: json_io.write_json(buf, t))
+        data = buf.getvalue()
+        sizes[f"{name} JSON lines"] = len(data)
+        text = pa.schema([pa.field(f.name, pa.string()
+                                   if pa.types.is_date(f.type) else f.type)
+                          for f in types])
+        back = meter.host(f"{name} pyarrow.json reads", lambda: (
+            pajson.read_json(io.BytesIO(data), parse_options=(
+                pajson.ParseOptions(explicit_schema=text)))))
+        same_arrow(pa.table([pc.cast(back[f.name], f.type) for f in types],
+                            schema=types), "JSON read by pyarrow")
+        got = meter.host(f"{name} read_json", lambda: json_io.read_json(
+            data, t.schema, device=dev))
+        _same_table(_valid_masks_dropped(got), t,
+                    f"{what}: {name} read_json")
+        del data, got, back
+
+        part = t.slice(0, min(avro_rows, t.num_rows))
+        buf = io.BytesIO()
+        meter.host(f"{name} write_avro ({part.num_rows:,} rows)",
+                   lambda: avro.write_avro(buf, part))
+        sizes[f"{name} Avro ({part.num_rows:,} rows)"] = buf.tell()
+        got = meter.host(f"{name} read_avro", lambda: avro.read_avro(
+            buf.getvalue(), device=dev))
+        _same_table(got, part, f"{what}: {name} read_avro")
+
+        path = str(tmp / f"{name}.arrow")
+        meter.host(f"{name} checkpoint_table ({codec})",
+                   lambda: checkpoint.checkpoint_table(path, t,
+                                                       compression=codec))
+        sizes[f"{name} checkpoint ({codec})"] = Path(path).stat().st_size
+        got = meter.host(f"{name} restore_table", lambda: (
+            checkpoint.restore_table(path, device=dev)))
+        _same_table(got, t, f"{what}: {name} restore_table")
+        del got, src
+    return sizes
+
+
+def run_phase31(dev, profile: bool) -> None:
+    """Phase 31: TPC-H SF1 lineitem and orders made on the card, through
+    CSV, JSON lines, Avro (cut) and checkpoints, each held to the source
+    and to pyarrow's reading."""
+    import tempfile
+    what = "phase 31, TPC-H SF1 through the text formats"
+    t0 = time.perf_counter()
+    tabs, _ = tpch_tables(P31_ROWS, P31_CUSTOMERS, dev, text=True)
+    tabs = {k: tabs[k] for k in ("lineitem", "orders")}
+    torch.cuda.synchronize()
+    print(f"{what}: lineitem {tabs['lineitem'].num_rows:,} rows, orders "
+          f"{tabs['orders'].num_rows:,} made on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    meter = CardMeter(profile, what)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        sizes = p31_calls(tabs, dev, meter, Path(tmp))
+    print(f"{what}: every round trip equal to its source and to pyarrow's "
+          f"reading; seconds (host clock, synced): "
+          f"{json.dumps({k: round(v, 3) for k, v in meter.seconds.items()})}"
+          f"; bytes: {json.dumps(sizes)}; peak device memory "
+          f"{peak_gib():.2f} GiB", flush=True)
+
+
+def _rows_close(got: list, want: list, floats: set, what: str) -> None:
+    """Rows of (name -> value) dicts: equal, floats within P32_RTOL."""
+    import math
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} rows against {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        for k, v in b.items():
+            ok = math.isclose(a[k], v, rel_tol=P32_RTOL) if k in floats \
+                else a[k] == v
+            if not ok:
+                raise AssertionError(f"{what}: row {i} {k} {a[k]!r} "
+                                     f"against {v!r}")
+
+
+def _port_rows(t) -> list:
+    d = t.to_pydict()
+    return [dict(zip(d, r)) for r in zip(*d.values())]
+
+
+def p32_pyarrow(name: str, pat: dict) -> list:
+    """The answer to P32_QUERIES[name] computed by pyarrow over host
+    copies of the tables (an independent computation): rows of dicts,
+    in the query's order."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    d = lambda *a: pa.scalar(_days(*a), pa.date32())
+    li = pat["lineitem"]
+    rev = lambda t: pc.multiply(t["l_extendedprice"],
+                                pc.subtract(1.0, t["l_discount"]))
+    if name == "Q1":
+        f = li.filter(pc.less_equal(li["l_shipdate"], d(1998, 9, 2)))
+        dp = rev(f)
+        t = pa.table({"l_returnflag": f["l_returnflag"],
+                      "l_linestatus": f["l_linestatus"],
+                      "q": f["l_quantity"], "p": f["l_extendedprice"],
+                      "dp": dp, "ch": pc.multiply(dp, pc.add(1.0, f["l_tax"])),
+                      "d": f["l_discount"]})
+        g = t.group_by(["l_returnflag", "l_linestatus"]).aggregate([
+            ("q", "sum"), ("p", "sum"), ("dp", "sum"), ("ch", "sum"),
+            ("q", "mean"), ("p", "mean"), ("d", "mean"), ("q", "count")])
+        g = g.sort_by([("l_returnflag", "ascending"),
+                       ("l_linestatus", "ascending")])
+        names = ["l_returnflag", "l_linestatus", "sum_qty", "sum_base_price",
+                 "sum_disc_price", "sum_charge", "avg_qty", "avg_price",
+                 "avg_disc", "count_order"]
+        cols = ["l_returnflag", "l_linestatus", "q_sum", "p_sum", "dp_sum",
+                "ch_sum", "q_mean", "p_mean", "d_mean", "q_count"]
+    elif name == "Q4":
+        o = pat["orders"]
+        f = o.filter(pc.and_(pc.greater_equal(o["o_orderdate"],
+                                              d(1993, 7, 1)),
+                             pc.less(o["o_orderdate"], d(1993, 10, 1))))
+        g = f.group_by(["o_orderpriority"]).aggregate([([], "count_all")])
+        g = g.sort_by([("o_orderpriority", "ascending")])
+        names = ["o_orderpriority", "order_count"]
+        cols = ["o_orderpriority", "count_all"]
+    elif name == "Q6":
+        f = li.filter(pc.and_(pc.and_(
+            pc.greater_equal(li["l_shipdate"], d(1994, 1, 1)),
+            pc.less(li["l_shipdate"], d(1995, 1, 1))), pc.and_(pc.and_(
+                pc.greater_equal(li["l_discount"], 0.05),
+                pc.less_equal(li["l_discount"], 0.07)),
+                pc.less(li["l_quantity"], 24.0))))
+        s = pc.sum(pc.multiply(f["l_extendedprice"], f["l_discount"]))
+        return [{"revenue": s.as_py()}]
+    elif name == "Q3":
+        c = pat["customer"]
+        c = c.filter(pc.equal(c["c_mktsegment"], "BUILDING"))
+        o = pat["orders"]
+        o = o.filter(pc.less(o["o_orderdate"], d(1995, 3, 15)))
+        o = o.join(c.select(["c_custkey"]), "o_custkey", "c_custkey",
+                   join_type="inner")
+        f = li.filter(pc.greater(li["l_shipdate"], d(1995, 3, 15)))
+        j = f.join(o, "l_orderkey", "o_orderkey", join_type="inner")
+        t = pa.table({"l_orderkey": j["l_orderkey"], "r": rev(j),
+                      "o_orderdate": j["o_orderdate"],
+                      "o_shippriority": j["o_shippriority"]})
+        g = t.group_by(["l_orderkey", "o_orderdate", "o_shippriority"]) \
+            .aggregate([("r", "sum")])
+        g = g.sort_by([("r_sum", "descending"),
+                       ("o_orderdate", "ascending")]).slice(0, 10)
+        names = ["l_orderkey", "revenue", "o_orderdate", "o_shippriority"]
+        cols = ["l_orderkey", "r_sum", "o_orderdate", "o_shippriority"]
+    elif name == "Q10":
+        o = pat["orders"]
+        o = o.filter(pc.and_(pc.greater_equal(o["o_orderdate"],
+                                              d(1993, 10, 1)),
+                             pc.less(o["o_orderdate"], d(1994, 1, 1))))
+        f = li.filter(pc.equal(li["l_returnflag"], "R"))
+        j = f.join(o.select(["o_orderkey", "o_custkey"]), "l_orderkey",
+                   "o_orderkey", join_type="inner")
+        j = j.join(pat["customer"], "o_custkey", "c_custkey",
+                   join_type="inner")        # keeps o_custkey's name
+        j = j.join(pat["nation"].select(["n_nationkey", "n_name"]),
+                   "c_nationkey", "n_nationkey", join_type="inner")
+        keys = ["c_custkey", "c_name", "c_acctbal", "c_phone", "n_name",
+                "c_address", "c_comment"]
+        t = pa.table({**{k: j["o_custkey" if k == "c_custkey" else k]
+                         for k in keys}, "r": rev(j)})
+        g = t.group_by(keys).aggregate([("r", "sum")])
+        g = g.sort_by([("r_sum", "descending")]).slice(0, 20)
+        names = ["c_custkey", "c_name", "revenue", "c_acctbal", "n_name",
+                 "c_address", "c_phone", "c_comment"]
+        cols = ["c_custkey", "c_name", "r_sum", "c_acctbal", "n_name",
+                "c_address", "c_phone", "c_comment"]
+    else:
+        raise KeyError(name)
+    py = {n: g[c].to_pylist() for n, c in zip(names, cols)}
+    return [dict(zip(py, r)) for r in zip(*py.values())]
+
+
+P32_FLOATS = {"sum_qty", "sum_base_price", "sum_disc_price", "sum_charge",
+              "avg_qty", "avg_price", "avg_disc", "revenue"}
+P32_NEEDS = {"lineitem": ["l_orderkey", "l_quantity", "l_extendedprice",
+                          "l_discount", "l_tax", "l_returnflag",
+                          "l_linestatus", "l_shipdate"],
+             "orders": ["o_orderkey", "o_custkey", "o_orderdate",
+                        "o_orderpriority", "o_shippriority"],
+             "customer": ["c_custkey", "c_name", "c_address", "c_nationkey",
+                          "c_phone", "c_acctbal", "c_mktsegment",
+                          "c_comment"],
+             "nation": ["n_nationkey", "n_name"]}
+# Q1's float sums take the sort plan (K2 sums integers only, as in the
+# reference's _agg_supported), so K2 runs under SQL at Q4's COUNT(*)
+P32_MUST = {"Q1": "compact", "Q3": "compact", "Q4": "grouped_aggregate",
+            "Q6": "compact", "Q10": "compact"}
+K1_SQL = (("compact", "filter"), ("compact", "groupby"), ("compact", "join"),
+          ("compact", "sort"))
+
+
+def p32_calls(tabs: dict, dev, meter, cpu_rows: int = P32_CPU_ROWS):
+    """Phase 32's queries (P32_QUERIES) through execute_sql over `tabs`
+    on `dev`, each run with the launch counts at 0 (every K1 and K2 call
+    of the run on the card launched once), then timed by `meter`, its
+    answer held to pyarrow's over host copies (group keys, counts and
+    row order exactly, float sums within P32_RTOL).  Q1 at `cpu_rows`
+    rows also runs on the CPU route and equals the card's answer (float
+    sums within P32_RTOL: the card's scan adds in another order).
+    Returns {site: (recorded calls, the query's launch counts)} for the
+    K1 and K2 sites and the rows each query gave."""
+    from arrow_tpu_torch.sql import execute_sql
+    what = meter.what
+    pat = {k: _arrow(tabs[k], cols) for k, cols in P32_NEEDS.items()}
+    sites, answers = {}, {}
+    for name, query in P32_QUERIES.items():
+        run = lambda query=query: execute_sql(tabs, query)
+        out, launches, calls = meter.counted(
+            name, P32_MUST[name], run, *K1_SQL,
+            ("grouped_aggregate", "groupby"))
+        k1, k2 = sum(calls[:len(K1_SQL)], []), calls[len(K1_SQL)]
+        for kernel, made in (("compact", k1), ("grouped_aggregate", k2)):
+            on_card = sum(a[0].is_cuda for a, _ in made)
+            if launches[kernel] != on_card:
+                raise AssertionError(f"{what}: {name} launched {kernel} "
+                                     f"{launches[kernel]} times for "
+                                     f"{on_card} calls on the card")
+        if any(c.device != dev for c in out.columns):
+            raise AssertionError(f"{what}: {name}'s answer is not on {dev}")
+        got = _port_rows(out)
+        _rows_close(got, p32_pyarrow(name, pat), P32_FLOATS,
+                    f"{what}: {name} against pyarrow")
+        answers[name] = got
+        filt, grp, join, _ = calls[:len(K1_SQL)]
+        print(f"{what}: {name} {len(got)} rows equal to pyarrow's; "
+              f"launches {launches}; K1 calls: filter {len(filt)}, "
+              f"group_by {len(grp)}, join {len(join)}; K2 calls {len(k2)}; "
+              f"first row "
+              f"{got[0] if got else None}", flush=True)
+        if name == "Q6":
+            sites["Q6 WHERE"] = (filt, launches)
+        elif name == "Q1":
+            sites["Q1 group_by run starts"] = (grp, launches)
+        elif name == "Q3":
+            sites["Q3 joins"] = (join, launches)
+            sites["Q3 group_by run starts"] = (grp, launches)
+        elif name == "Q4":
+            sites["Q4 group_by"] = (k2, launches)
+        # the recorded calls hold the joins' inputs: only the sites' stay
+        del out, calls, k1, k2, filt, grp, join
+        meter.timed(name, run)
+    part = {"lineitem": tabs["lineitem"].slice(0, min(
+        cpu_rows, tabs["lineitem"].num_rows))}
+    on_card = _port_rows(execute_sql(part, P32_QUERIES["Q1"]))
+    on_cpu = _port_rows(execute_sql({"lineitem": _cpu(part["lineitem"])},
+                                    P32_QUERIES["Q1"]))
+    _rows_close(on_card, on_cpu, P32_FLOATS - {"sum_qty", "avg_qty"},
+                f"{what}: Q1 at {part['lineitem'].num_rows:,} rows against "
+                f"the CPU route")
+    print(f"{what}: Q1 at {part['lineitem'].num_rows:,} rows equal to the "
+          f"CPU route (keys, counts and the integer-valued quantity sums "
+          f"bit for bit)", flush=True)
+    return sites, answers
+
+
+def run_phase32(dev, profile: bool) -> list:
+    """Phase 32: TPC-H Q1, Q3, Q4, Q6 and Q10 as SQL text at SF10 over
+    lineitem, orders, customer and nation made on the card.  Returns the
+    kernel entries of its K1 and K2 sites, each with the launches of the
+    query that holds it."""
+    what = "phase 32, TPC-H SF10 as SQL"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tabs, _ = tpch_tables(P32_ROWS, P32_CUSTOMERS, dev, text=False)
+    torch.cuda.synchronize()
+    from arrow_tpu_torch.core.pool import table_memory_size
+    print(f"{what}: " + ", ".join(
+        f"{k} {t.num_rows:,} rows ({table_memory_size(t):,} bytes)"
+        for k, t in tabs.items())
+        + f" made on the card in {time.perf_counter() - t0:.1f} s; peak "
+        f"{peak_gib():.2f} GiB", flush=True)
+    meter = CardMeter(profile, what)
+    sites, _ = p32_calls(tabs, dev, meter)
+    print(f"{what}: peak device memory {meter.peak_gib():.2f} GiB; "
+          f"latency (CUDA events, median of 5; ms): "
+          + json.dumps(meter.times), flush=True)
+    entries = []
+    calls, launches = sites["Q6 WHERE"]
+    (args, kwargs), = calls
+    keep, arrays = args[:2]
+    site = _compact_site(
+        f"phase 32 Q6 WHERE filter_table of lineitem (16 columns), "
+        f"{keep.shape[0]:,} rows, {float(keep.float().mean()):.2%} kept",
+        keep, tuple(arrays), kwargs.get("out_cap"),
+        lambda: (tuple(a[keep] for a in arrays), keep.nonzero()),
+        kwargs.get("positions"))
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    entries.append(_entry(site, launches["compact"], err))
+    for key, label in (("Q1 group_by run starts",
+                        "Q1 GROUP BY l_returnflag, l_linestatus sort-plan "
+                        "run starts"), ("Q3 joins", "Q3 JOIN"),
+                       ("Q3 group_by run starts",
+                        "Q3 GROUP BY o_orderkey, o_orderdate, "
+                        "o_shippriority sort-plan run starts")):
+        calls, launches = sites[key]
+        for i, (args, kwargs) in enumerate(calls):
+            keep, arrays = args[:2]
+            site = _compact_site(
+                f"phase 32 {label}, K1 call {i + 1} of {len(calls)}, "
+                f"{keep.shape[0]:,} rows, {int(keep.sum()):,} kept", keep,
+                tuple(arrays), kwargs.get("out_cap"),
+                lambda keep=keep, arrays=arrays: (
+                    tuple(a[keep] for a in arrays), keep.nonzero()),
+                kwargs.get("positions"))
+            err = check_site(site, same_compaction, f"K1 at "
+                             f"{site.call_site}")
+            entries.append(_entry(site, launches["compact"], err))
+    calls, launches = sites["Q4 group_by"]
+    (args, kwargs), = calls
+    codes, groups = args[:2]
+    site = _k2_site(f"phase 32 Q4 GROUP BY o_orderpriority dictionary plan, "
+                    f"COUNT(*), {codes.shape[0]:,} rows x {groups} codes",
+                    calls[0])
+    if not kwargs.get("mm_cols") and kwargs.get("codes_valid") is None \
+            and kwargs.get("base", 0) == 0 \
+            and all(c.values is None for c in kwargs["sum_cols"]):
+        # counts alone: one bincount computes the same function
+        site = dataclasses.replace(site, library=lambda: torch.bincount(
+            codes, minlength=groups))
+    err = check_site(site, same_aggregates, f"K2 at {site.call_site}")
+    entries.append(_entry(site, launches["grouped_aggregate"], err))
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4321,14 +4969,18 @@ def main(argv=None) -> int:
     e28, checks28 = lap("phase 28", lambda: run_phase28(dev, args.profile))
     e29, checks29 = lap("phase 29", lambda: run_phase29(dev, args.profile))
     e30 = lap("phase 30", lambda: run_phase30(dev, args.profile))
-    entries += e26 + e27 + e28 + e29 + e30
     for name, checks in (("phase 26", checks26), ("phase 27", checks27),
                          ("phase 28", checks28), ("phase 29", checks29)):
         lap(f"{name}'s CPU route", lambda checks=checks:
             check_against_cpu(checks))
+    # the CPU route's inputs (phase 28's SF10 tables among them) go
+    # before phase 32's joins need the card
+    del checks, checks26, checks27, checks28, checks29
+    lap("phase 31", lambda: run_phase31(dev, args.profile))
+    e32 = lap("phase 32", lambda: run_phase32(dev, args.profile))
+    entries += e26 + e27 + e28 + e29 + e30 + e32
     print("seconds by step (host clock): " + json.dumps(
         {k: round(v, 1) for k, v in laps.items()}), flush=True)
-    del checks26, checks27, checks28, checks29
 
     sources = {
         "compact": {"route": "cuda",
