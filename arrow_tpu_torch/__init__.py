@@ -52,6 +52,8 @@ from .utils.display import (  # noqa: F401
 from .utils.trace import op_timer, timings, OpTimings  # noqa: F401
 from . import compute  # noqa: F401
 
+__version__ = "0.1.0"
+
 __all__ = ["dtypes", "Column", "PrimitiveColumn", "StringColumn",
            "DictionaryColumn", "ListColumn", "StructColumn", "NullColumn",
            "column", "from_numpy", "Scalar", "scalar", "Table",

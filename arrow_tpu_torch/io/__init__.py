@@ -2,7 +2,9 @@
 pyarrow interop, the C Data Interface (`cdata`), Arrow IPC streams and
 files (`ipc`), Parquet (`parquet_io`, over `parquet_native` and
 `parquet_writer`), CSV, JSON, Avro, the integration-test JSON format
-and Parquet records.  Flight follows (ROADMAP A8.5)."""
+and Parquet records.  Flight and FlightSQL (`flight`, `flightsql`, over
+the protobuf codec `pb`) need grpc and are imported where they are
+used, as the reference's package does not export them either."""
 
 from .interop import (  # noqa: F401
     column_from_pyarrow, column_to_pyarrow,

@@ -248,6 +248,25 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      K1 at Q6's WHERE, Q1's and Q3's sort-plan run starts and Q3's
      joins against its plain version.  Q1's float sums take the sort
      plan: K2 sums integers only, so phase 32 launches no K2.
+ 33. TPC-H SF10 served: phase 32's four tables made again on the card
+     (phase 32's freed first) and registered with a FlightSQLServer on
+     the card at grpc://localhost:0; a FlightSQLClient on the card asks
+     for Q1, Q3, Q4, Q6 and Q10 as SQL text, each with the launch
+     counts at 0 around the call (every K1 and K2 call the server made
+     on the card launched once; Q1, Q3, Q6 and Q10 launch K1, Q4 K2),
+     its answer equal to execute_sql's in process (bit for bit where two
+     direct runs agree, else within rtol 1e-9) and to pyarrow's; the
+     served call's host-clock median of 5 beside the direct call's host
+     and CUDA-event medians.  orders (14,998,113 rows) through DoGet by
+     the port's client and by pyarrow.flight's, and back by the port's
+     DoPut under a new name (it lands on the card), each equal to its
+     source, with seconds and GB/s; CREATE TABLE and four clients
+     inserting at once (the count exact: the update lock); a prepared
+     Q4 with its dates bound; ActionCancelQuery; the CLI's flight-sql of
+     Q6 equal to pretty_format_table of the direct answer, parquet-read
+     and pretty with --device cuda over an SF1 orders Parquet file the
+     phase writes; then K1 at served Q6's WHERE and K2 at served Q4's
+     grouping against their plain versions.
 
 `--profile` also traces the dictionary and config-4 group-bys, the
 config-5 joins on both plans, one streamed chunk, config 2 (eager and
@@ -275,8 +294,9 @@ the group_by and filter_table calls of steps 25-27, the group_by and
 rank calls of step 28, Q13's filter_table and group_by and Q22's
 group_by in step 29, and in step 30 the calls each scan site made over
 its scan (one a row group; the scan's launch count equals the two
-sites' calls) and the launches of Q1's group_by; in step 32 the calls
-of the query that holds the site.
+sites' calls) and the launches of Q1's group_by; in steps 32 and 33 the
+calls of the query that holds the site (in step 33 the served query,
+its kernels launched on the server's gRPC worker threads).
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object of per-kernel results; the last line is the JSON result
@@ -4810,18 +4830,7 @@ def run_phase32(dev, profile: bool) -> list:
     print(f"{what}: peak device memory {meter.peak_gib():.2f} GiB; "
           f"latency (CUDA events, median of 5; ms): "
           + json.dumps(meter.times), flush=True)
-    entries = []
-    calls, launches = sites["Q6 WHERE"]
-    (args, kwargs), = calls
-    keep, arrays = args[:2]
-    site = _compact_site(
-        f"phase 32 Q6 WHERE filter_table of lineitem (16 columns), "
-        f"{keep.shape[0]:,} rows, {float(keep.float().mean()):.2%} kept",
-        keep, tuple(arrays), kwargs.get("out_cap"),
-        lambda: (tuple(a[keep] for a in arrays), keep.nonzero()),
-        kwargs.get("positions"))
-    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
-    entries.append(_entry(site, launches["compact"], err))
+    entries = [q6_where_entry("phase 32", *sites["Q6 WHERE"])]
     for key, label in (("Q1 group_by run starts",
                         "Q1 GROUP BY l_returnflag, l_linestatus sort-plan "
                         "run starts"), ("Q3 joins", "Q3 JOIN"),
@@ -4841,10 +4850,33 @@ def run_phase32(dev, profile: bool) -> list:
             err = check_site(site, same_compaction, f"K1 at "
                              f"{site.call_site}")
             entries.append(_entry(site, launches["compact"], err))
-    calls, launches = sites["Q4 group_by"]
+    entries.append(q4_group_entry("phase 32", *sites["Q4 group_by"]))
+    return entries
+
+
+def q6_where_entry(phase: str, calls, launches) -> dict:
+    """K1 at Q6's WHERE (filter_table of lineitem), from the one call
+    the query made, against its plain version: the kernels-line entry,
+    with the query's launches."""
+    (args, kwargs), = calls
+    keep, arrays = args[:2]
+    site = _compact_site(
+        f"{phase} Q6 WHERE filter_table of lineitem (16 columns), "
+        f"{keep.shape[0]:,} rows, {float(keep.float().mean()):.2%} kept",
+        keep, tuple(arrays), kwargs.get("out_cap"),
+        lambda: (tuple(a[keep] for a in arrays), keep.nonzero()),
+        kwargs.get("positions"))
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    return _entry(site, launches["compact"], err)
+
+
+def q4_group_entry(phase: str, calls, launches) -> dict:
+    """K2 at Q4's GROUP BY o_orderpriority (the dictionary plan's
+    COUNT(*)), from the one call the query made, against its plain
+    version and, for counts alone, torch.bincount."""
     (args, kwargs), = calls
     codes, groups = args[:2]
-    site = _k2_site(f"phase 32 Q4 GROUP BY o_orderpriority dictionary plan, "
+    site = _k2_site(f"{phase} Q4 GROUP BY o_orderpriority dictionary plan, "
                     f"COUNT(*), {codes.shape[0]:,} rows x {groups} codes",
                     calls[0])
     if not kwargs.get("mm_cols") and kwargs.get("codes_valid") is None \
@@ -4854,7 +4886,331 @@ def run_phase32(dev, profile: bool) -> list:
         site = dataclasses.replace(site, library=lambda: torch.bincount(
             codes, minlength=groups))
     err = check_site(site, same_aggregates, f"K2 at {site.call_site}")
-    entries.append(_entry(site, launches["grouped_aggregate"], err))
+    return _entry(site, launches["grouped_aggregate"], err)
+
+
+P33_REPS = 5                       # served and direct calls timed
+P33_WRITERS = 4                    # clients inserting at once
+P33_INSERTS = 25                   # single-row INSERTs each
+
+
+def host_ms(fn, reps: int = P33_REPS) -> float:
+    """Median host-clock time of `fn` over `reps` runs after a warm-up,
+    synced before and after each: a served call as its client sees it."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _fields(t) -> list:
+    return [(f.name, repr(f.dtype), f.nullable) for f in t.schema.fields]
+
+
+def p33_served(client, tabs: dict, dev, meter, pat: dict):
+    """Phase 33's queries (P32_QUERIES) served: each asked of the
+    FlightSQL server by `client`, with the launch counts at 0 around the
+    call (every K1 and K2 call the server made on the card launched
+    once; the query's kernel launched), its answer on the client's
+    device equal to execute_sql's in process on the same tables (bit for
+    bit where two direct runs agree bit for bit, else within P32_RTOL)
+    and to pyarrow's; then the served call's host-clock median beside
+    the direct call's host-clock and CUDA-event medians.  Returns the
+    sites of served Q6's WHERE (K1) and Q4's grouping (K2), the direct
+    answers, and the queries whose direct float sums varied."""
+    from arrow_tpu_torch.sql import execute_sql
+    what = meter.what
+    sites, answers, varied, times = {}, {}, [], {}
+    for name, query in P32_QUERIES.items():
+        served, launches, calls = meter.counted(
+            name, P32_MUST[name], lambda query=query: client.execute(query),
+            *K1_SQL, ("grouped_aggregate", "groupby"))
+        k1, k2 = sum(calls[:len(K1_SQL)], []), calls[len(K1_SQL)]
+        for kernel, made in (("compact", k1), ("grouped_aggregate", k2)):
+            on_card = sum(a[0].is_cuda for a, _ in made)
+            if launches[kernel] != on_card:
+                raise AssertionError(f"{what}: served {name} launched "
+                                     f"{kernel} {launches[kernel]} times "
+                                     f"for {on_card} calls on the card")
+        if name == "Q6":
+            sites["Q6 WHERE"] = (calls[0], launches)
+        elif name == "Q4":
+            sites["Q4 group_by"] = (k2, launches)
+        del calls, k1, k2
+        if any(c.device != dev for c in served.columns):
+            raise AssertionError(f"{what}: served {name} is not on {dev}")
+        direct = execute_sql(tabs, query)
+        again = _port_rows(execute_sql(tabs, query))
+        want, got = _port_rows(direct), _port_rows(served)
+        if _fields(served) != _fields(direct):
+            raise AssertionError(f"{what}: served {name}'s fields "
+                                 f"{_fields(served)} against "
+                                 f"{_fields(direct)}")
+        if again == want:
+            if got != want:
+                raise AssertionError(f"{what}: served {name} differs from "
+                                     f"execute_sql's answer")
+        else:
+            varied.append(name)
+            _rows_close(got, want, P32_FLOATS,
+                        f"{what}: served {name} against execute_sql")
+        _rows_close(got, p32_pyarrow(name, pat), P32_FLOATS,
+                    f"{what}: served {name} against pyarrow")
+        answers[name] = direct
+        times[name] = {
+            "served_host_ms": host_ms(lambda query=query:
+                                      client.execute(query)),
+            "direct_host_ms": host_ms(lambda query=query:
+                                      execute_sql(tabs, query)),
+            "direct_cuda_ms": time_ms(lambda query=query:
+                                      execute_sql(tabs, query))}
+        t = times[name]
+        print(f"{what}: served {name}, {len(got)} rows, "
+              f"{'bit for bit' if name not in varied else 'within rtol'} "
+              f"equal to execute_sql's and equal to pyarrow's; launches "
+              f"{launches}; served {t['served_host_ms']:.3f} ms (host "
+              f"clock), direct {t['direct_host_ms']:.3f} ms (host clock), "
+              f"{t['direct_cuda_ms']:.3f} ms (CUDA events); overhead "
+              f"{t['served_host_ms'] - t['direct_host_ms']:.3f} ms",
+              flush=True)
+    return sites, answers, varied, times
+
+
+def p33_transfers(uri: str, server, tabs: dict, dev) -> dict:
+    """orders through DoGet (the port's client and pyarrow.flight's) and
+    DoPut (the port's client, under a new name, onto the server's card),
+    each equal to its source; seconds and GB/s (the table's bytes on the
+    card over the host-clock seconds, synced)."""
+    import pyarrow as pa
+    import pyarrow.flight as paf
+    from arrow_tpu_torch.core.pool import table_memory_size
+    from arrow_tpu_torch.io.flight import FlightTableClient
+    from arrow_tpu_torch.io.interop import table_to_pyarrow
+    what = "phase 33 transfers"
+    orders = tabs["orders"]
+    nbytes = table_memory_size(orders)
+    out = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[name] = {"s": secs, "GB/s": nbytes / secs / 1e9}
+        print(f"{what}: {name} of orders ({orders.num_rows:,} rows, "
+              f"{nbytes:,} bytes) {secs:.3f} s, {nbytes / secs / 1e9:.3f} "
+              f"GB/s; peak device memory {peak_gib():.2f} GiB", flush=True)
+        return got
+
+    client = FlightTableClient(uri, device=dev)
+    try:
+        got = timed("DoGet, the port's client",
+                    lambda: client.do_get("orders"))
+        if any(c.device != dev for c in got.columns):
+            raise AssertionError(f"{what}: DoGet's orders not on {dev}")
+        _same_table(got, orders, f"{what}: DoGet, the port's client")
+        del got
+        pa_client = paf.connect(uri)
+        try:
+            got = timed("DoGet, pyarrow.flight's client", lambda: pa_client
+                        .do_get(paf.Ticket(b"orders")).read_all())
+        finally:
+            pa_client.close()
+        if not got.equals(pa.Table.from_batches([table_to_pyarrow(orders)])):
+            raise AssertionError(f"{what}: pyarrow.flight's DoGet differs "
+                                 f"from orders")
+        del got
+        timed("DoPut, the port's client",
+              lambda: client.do_put("orders_copy", orders))
+        copy = server.get_table("orders_copy")
+        if any(c.device != dev for c in copy.columns):
+            raise AssertionError(f"{what}: DoPut's orders not on {dev}")
+        _same_table(copy, orders, f"{what}: DoPut")
+        del copy
+    finally:
+        client.close()
+    print(f"{what}: every copy equal to orders", flush=True)
+    return out
+
+
+def p33_dml(client, uri: str, dev, answers: dict) -> None:
+    """DML and statements over the service: CREATE TABLE, then
+    P33_WRITERS clients inserting P33_INSERTS rows each at once (every
+    row lands: the update lock); a prepared Q4 with its date range bound
+    as parameters, equal to Q4's direct answer; ActionCancelQuery of Q6
+    (its ticket refused, the query served again afterwards)."""
+    import threading
+    from arrow_tpu_torch.core.table import Table
+    from arrow_tpu_torch.io.flight import FlightError
+    from arrow_tpu_torch.io.flightsql import FlightSQLClient
+    what = "phase 33 DML"
+    if client.execute_update("CREATE TABLE p33_log (k BIGINT, w BIGINT)"):
+        raise AssertionError(f"{what}: CREATE TABLE counted rows")
+    errors = []
+
+    def writer(w):
+        c = FlightSQLClient(uri, device=dev)
+        try:
+            for i in range(P33_INSERTS):
+                if c.execute_update(f"INSERT INTO p33_log VALUES "
+                                    f"({w * P33_INSERTS + i}, {w})") != 1:
+                    raise AssertionError("an INSERT counted other than 1")
+        except Exception as e:            # reported below, raised there
+            errors.append(e)
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=writer, args=(w,))
+               for w in range(P33_WRITERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    secs = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    n = P33_WRITERS * P33_INSERTS
+    got = client.execute(
+        "SELECT COUNT(*) AS n, SUM(k) AS s FROM p33_log").to_pydict()
+    if got != {"n": [n], "s": [n * (n - 1) // 2]}:
+        raise AssertionError(f"{what}: {got} after {n} inserts")
+    print(f"{what}: {P33_WRITERS} clients x {P33_INSERTS} INSERTs at once, "
+          f"{n} rows exactly ({secs:.3f} s)", flush=True)
+
+    q4 = P32_QUERIES["Q4"]
+    lo, hi = _days(1993, 7, 1), _days(1993, 10, 1)
+    h = client.prepare(q4.replace(str(lo), "?").replace(str(hi), "?"))
+    h = client.bind_prepared(h, Table.from_pydict({"p0": [lo], "p1": [hi]},
+                                                  device=dev))
+    bound = client.execute_prepared(h)
+    client.close_prepared(h)
+    if _port_rows(bound) != _port_rows(answers["Q4"]):
+        raise AssertionError(f"{what}: the prepared Q4 differs from Q4")
+    print(f"{what}: prepared Q4 with its dates bound equal to Q4",
+          flush=True)
+
+    info = client.get_query_info(P32_QUERIES["Q6"])
+    if client.cancel_query(info) != 1:
+        raise AssertionError(f"{what}: CancelQuery did not cancel")
+    try:
+        client._client.do_get_ticket(info.endpoints[0][0])
+    except FlightError as e:
+        refused = e
+    else:
+        raise AssertionError(f"{what}: a cancelled ticket was served")
+    again = client.execute(P32_QUERIES["Q6"])
+    if _port_rows(again) != _port_rows(answers["Q6"]):
+        raise AssertionError(f"{what}: Q6 after the cancel differs")
+    print(f"{what}: ActionCancelQuery of Q6: its ticket refused "
+          f"({refused.code}), the query served again after", flush=True)
+
+
+def p33_cli(uri: str, dev, tmp: str, answers: dict, rows: int = P31_ROWS,
+            customers: int = P31_CUSTOMERS) -> None:
+    """The CLI on `dev` (--device cuda on the card): flight-sql of Q6
+    against the server prints pretty_format_table of the direct answer;
+    parquet-read and pretty over an SF1 orders Parquet file the phase
+    writes (`rows` lineitem rows) print its first 20 rows as pyarrow
+    reads them and as the source holds them."""
+    import contextlib
+    import io
+    import pyarrow.parquet as papq
+    from arrow_tpu_torch import cli
+    from arrow_tpu_torch.io.parquet_io import write_parquet
+    from arrow_tpu_torch.utils.display import pretty_format_table
+    what = "phase 33 CLI"
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        return buf.getvalue()
+
+    out = run(["flight-sql", "--uri", uri, P32_QUERIES["Q6"], "--device",
+               dev.type])
+    if out != pretty_format_table(answers["Q6"]) + "\n":
+        raise AssertionError(f"{what}: flight-sql printed {out!r}")
+    print(f"{what}: flight-sql Q6 prints the direct answer:\n{out}",
+          end="", flush=True)
+    sf1, _ = tpch_tables(rows, customers, dev, text=False)
+    orders = sf1["orders"]
+    del sf1
+    path = os.path.join(tmp, "orders_sf1.parquet")
+    write_parquet(path, orders)
+    t0 = time.perf_counter()
+    lines = run(["parquet-read", path, "--limit", "20", "--device",
+                 dev.type]).splitlines()
+    read_s = time.perf_counter() - t0
+    rows = papq.read_table(path).slice(0, 20).to_pylist()
+    if lines != [json.dumps(r, default=str) for r in rows]:
+        raise AssertionError(f"{what}: parquet-read differs from pyarrow's "
+                             f"reading of the file")
+    t0 = time.perf_counter()
+    out = run(["pretty", path, "--device", dev.type])
+    pretty_s = time.perf_counter() - t0
+    if out != pretty_format_table(orders.slice(0, 20)) + "\n":
+        raise AssertionError(f"{what}: pretty differs from the source rows")
+    print(f"{what}: parquet-read (--limit 20) and pretty of SF1 orders "
+          f"({orders.num_rows:,} rows, {os.path.getsize(path):,} bytes) on "
+          f"{dev} equal pyarrow's reading and the source; "
+          f"{read_s:.2f} s and {pretty_s:.2f} s", flush=True)
+
+
+def run_phase33(dev, profile: bool) -> list:
+    """Phase 33: a FlightSQL server holding TPC-H SF10 on the card, and
+    clients asking it for Q1, Q3, Q4, Q6 and Q10 over localhost gRPC;
+    orders through DoGet and DoPut; DML, a prepared statement and a
+    cancel over the service; the CLI on the card.  Returns the kernel
+    entries of served Q6's WHERE (K1) and served Q4's grouping (K2)."""
+    import tempfile
+    from arrow_tpu_torch.core.pool import table_memory_size
+    from arrow_tpu_torch.io.flightsql import FlightSQLClient, FlightSQLServer
+    what = "phase 33, FlightSQL over TPC-H SF10"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tabs, _ = tpch_tables(P32_ROWS, P32_CUSTOMERS, dev, text=False)
+    torch.cuda.synchronize()
+    print(f"{what}: " + ", ".join(
+        f"{k} {t.num_rows:,} rows ({table_memory_size(t):,} bytes)"
+        for k, t in tabs.items())
+        + f" made on the card in {time.perf_counter() - t0:.1f} s",
+        flush=True)
+    server = FlightSQLServer("grpc://localhost:0", device=dev)
+    for name, t in tabs.items():
+        server.register(name, t)
+    client = FlightSQLClient(server.uri, device=dev)
+    meter = CardMeter(profile, what)
+    try:
+        pat = {k: _arrow(tabs[k], cols) for k, cols in P32_NEEDS.items()}
+        sites, answers, varied, times = p33_served(client, tabs, dev, meter,
+                                                   pat)
+        del pat
+        print(f"{what}: served answers whose direct float sums varied "
+              f"between two direct runs (held within rtol "
+              f"{P32_RTOL}): {varied or 'none'}; latency (ms): "
+              + json.dumps(times), flush=True)
+        rates = p33_transfers(server.uri, server, tabs, dev)
+        client.execute_update("DROP TABLE orders_copy")
+        p33_dml(client, server.uri, dev, answers)
+        build = Path(__file__).resolve().parent / "build"
+        build.mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            p33_cli(server.uri, dev, tmp, answers)
+        entries = [q6_where_entry("phase 33 served", *sites["Q6 WHERE"]),
+                   q4_group_entry("phase 33 served", *sites["Q4 group_by"])]
+    finally:
+        client.close()
+        server.shutdown()
+    print(f"{what}: transfers {json.dumps(rates)}; peak device memory "
+          f"{meter.peak_gib():.2f} GiB", flush=True)
     return entries
 
 
@@ -4978,7 +5334,8 @@ def main(argv=None) -> int:
     del checks, checks26, checks27, checks28, checks29
     lap("phase 31", lambda: run_phase31(dev, args.profile))
     e32 = lap("phase 32", lambda: run_phase32(dev, args.profile))
-    entries += e26 + e27 + e28 + e29 + e30 + e32
+    e33 = lap("phase 33", lambda: run_phase33(dev, args.profile))
+    entries += e26 + e27 + e28 + e29 + e30 + e32 + e33
     print("seconds by step (host clock): " + json.dumps(
         {k: round(v, 1) for k, v in laps.items()}), flush=True)
 
