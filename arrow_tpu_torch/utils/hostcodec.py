@@ -17,13 +17,15 @@ engines: CSV indexing, parsing and formatting, the JSON tape and
 unescaper, Avro's block decoder and zigzag varints, and the byte-range
 gather of Variant (native.py:124-142,651-663,694-870).
 
-The library is `native/libhostcodec.so` at the repository's root, built
-by `make -C native` at first use (and again when hostcodec.cpp is newer
-than it).  Processes that load it at the same time take a file lock in
-the port's build directory; another program that builds the same file
-may leave it half written for a moment, so a load that fails is retried
-briefly.  There is no per-row Python fallback: without the library these
-functions raise.
+The library is built from the repository's `native/hostcodec.cpp`, with
+`native/Makefile`'s flags, into the port's own build directory
+(`build/arrow_tpu_torch/libhostcodec.so`) at first use, and again when
+the source is newer than it.  The port never writes into `native/`: the
+JAX package builds `native/libhostcodec.so` in place there.  Processes
+that load the library at the same time take a file lock beside it; the
+one that builds compiles to a temporary name and renames it into place,
+so no process ever opens a half-written file.  There is no per-row
+Python fallback: without the library these functions raise.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ import fcntl
 import os
 import subprocess
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Tuple
@@ -55,41 +56,40 @@ __all__ = ["intern_varlen", "gather_varlen", "argsort_varlen",
            "csv_lib", "json_tape", "json_unescape", "decode_zigzag_longs",
            "avro_decode_block", "gather_ranges", "variant_get_path"]
 
-_NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
-_SO = _NATIVE_DIR / "libhostcodec.so"
-_LOCK = Path(__file__).resolve().parents[2] / "build" / "arrow_tpu_torch" \
-    / "hostcodec.lock"
+_ROOT = Path(__file__).resolve().parents[2]
+SOURCE = _ROOT / "native" / "hostcodec.cpp"
+BUILD_DIR = _ROOT / "build" / "arrow_tpu_torch"
+CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
+            "-Wall")                 # native/Makefile's CXXFLAGS
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _stale() -> bool:
-    src = _NATIVE_DIR / "hostcodec.cpp"
-    return not _SO.exists() or src.stat().st_mtime > _SO.stat().st_mtime
-
-
-def _open() -> ctypes.CDLL:
-    """Build the library when it is missing or stale, then load it."""
-    _LOCK.parent.mkdir(parents=True, exist_ok=True)
-    with open(_LOCK, "w") as lock:
+def load_library(source: Path = SOURCE, build_dir: Path = BUILD_DIR
+                 ) -> ctypes.CDLL:
+    """Build `build_dir/libhostcodec.so` from `source` when it is missing
+    or older than the source, then load it.  Builds are serialized by a
+    file lock in `build_dir` and renamed into place once complete."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    so = build_dir / "libhostcodec.so"
+    with open(build_dir / "hostcodec.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        err = None
-        for _ in range(20):
-            if _stale():
-                subprocess.run(["make", "-C", str(_NATIVE_DIR), "-s"],
-                               check=True, capture_output=True, timeout=300)
+        if not so.exists() or source.stat().st_mtime > so.stat().st_mtime:
+            tmp = build_dir / f".libhostcodec.{os.getpid()}.so"
             try:
-                return ctypes.CDLL(str(_SO))
-            except OSError as e:          # half written by another build
-                err = e
-                time.sleep(0.5)
-        raise RuntimeError(f"cannot load {_SO}: {err}")
+                subprocess.run([os.environ.get("CXX", "g++"), *CXXFLAGS,
+                                "-o", str(tmp), str(source)],
+                               check=True, capture_output=True, timeout=300)
+                os.replace(tmp, so)
+            finally:
+                tmp.unlink(missing_ok=True)
+        return ctypes.CDLL(str(so))
 
 
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = _open()
+        lib = load_library()
         i64, u8p = ctypes.c_int64, ctypes.POINTER(ctypes.c_uint8)
         i64p = ctypes.POINTER(ctypes.c_int64)
         lib.intern_varlen.argtypes = [i64p, u8p, i64,

@@ -267,6 +267,31 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      and pretty with --device cuda over an SF1 orders Parquet file the
      phase writes; then K1 at served Q6's WHERE and K2 at served Q4's
      grouping against their plain versions.
+ 34. the distributed operators (arrow_tpu_torch/parallel) over a
+     LocalMesh of 8 shards on the one card, a thread a shard (the
+     reference's 8-device mesh; NCCL refuses two ranks on one GPU):
+     dryrun_multichip(8, "cuda") and its host-truth checks; config 4's
+     500M rows (keys h % 1,000, then h % 10M) through dist_group_by with
+     a shuffle cap of 1.25 times the uniform share (raised to the
+     largest bucket, printed) and a group cap from the key domain, equal
+     to the single-device group_by of the same rows (computed first, its
+     groups kept on the host); config 3's 100M Int64 keys (10% null)
+     through dist_sort with the row ids riding, equal as a sequence to
+     one stable torch.sort; config 5's 100M probe x 10M unique build
+     rows (cut from 1B x 100M: eight shards of one card hold what eight
+     hosts would) through dist_join_unique and dist_join, and Zipf(1.1)
+     probe keys through dist_join_skew, every matched pair equal to the
+     single-device join_indices; TPC-H SF1 (phase 31's generators)
+     through dist_table_group_by (l_returnflag, l_linestatus),
+     dist_table_sort (l_shipdate descending, l_orderkey) and
+     dist_table_join (lineitem and orders on l_orderkey), equal to
+     group_by, sort_table and join; dist_group_by through
+     ProcessGroupComm over NCCL at world size 1 in this process, equal to
+     a one-shard LocalMesh.  Each step's seconds on the host clock
+     (synced) and the phase's peak device memory; then K1 at the run
+     starts of local_group_aggregate, at dist_join_skew's
+     _compact_front and at the three table calls' trims against its
+     plain version.
 
 `--profile` also traces the dictionary and config-4 group-bys, the
 config-5 joins on both plans, one streamed chunk, config 2 (eager and
@@ -296,7 +321,11 @@ group_by in step 29, and in step 30 the calls each scan site made over
 its scan (one a row group; the scan's launch count equals the two
 sites' calls) and the launches of Q1's group_by; in steps 32 and 33 the
 calls of the query that holds the site (in step 33 the served query,
-its kernels launched on the server's gRPC worker threads).
+its kernels launched on the server's gRPC worker threads); in step 34
+the call over the mesh that holds the site (config 4's 10M-group
+dist_group_by: one run-start launch a shard; dist_join_skew: one a
+shard; each table call: its trim, and the group-by's run starts), from
+all eight shards' threads.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object of per-kernel results; the last line is the JSON result
@@ -309,6 +338,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1087,9 +1117,12 @@ def run_config4_10m(dev, profile: bool) -> dict:
 @contextlib.contextmanager
 def watch(name: str, module: str = "join"):
     """Record (args, kwargs) of each call of
-    arrow_tpu_torch.ops.<module>.<name> made inside the block."""
+    arrow_tpu_torch.ops.<module>.<name> (arrow_tpu_torch.<module>.<name>
+    for a dotted module) made inside the block, from any thread."""
     import importlib
-    mod = importlib.import_module(f"arrow_tpu_torch.ops.{module}")
+    mod = importlib.import_module(
+        f"arrow_tpu_torch.{module}" if "." in module
+        else f"arrow_tpu_torch.ops.{module}")
     real, calls = getattr(mod, name), []
 
     def wrapper(*args, **kwargs):
@@ -5214,11 +5247,453 @@ def run_phase33(dev, profile: bool) -> list:
     return entries
 
 
+# ---- phase 34: the distributed operators over a mesh on the card -----------
+
+P34_SHARDS = 8                     # the reference's 8-device mesh
+P34_CONFIG4_ROWS = CONFIG4_ROWS    # BASELINE config 4, 500M rows
+P34_CONFIG4_GROUPS = (1_000, 10_000_000)
+P34_CONFIG3_ROWS = CONFIG3_ROWS    # BASELINE config 3, 100M rows
+P34_PROBE = CONFIG5_PROBE          # config 5 (cut from 1B x 100M: one card)
+P34_BUILD = CONFIG5_BUILD
+P34_ZIPF = 1.1                     # config 5's skewed probe keys
+P34_SF1_ROWS = P31_ROWS            # TPC-H SF1 lineitem for the table API
+P34_NCCL_ROWS = 10_000_000
+P34_SLACK = 1.25                   # a shuffle cap over the uniform share
+
+
+def p34_largest_bucket(key: torch.Tensor, n_shards: int) -> int:
+    """The most rows one shard's block of `key` hashes to one shard."""
+    from arrow_tpu_torch.parallel.partition import _umod, hash_u64
+    per = key.shape[0] // n_shards
+    return max(int(torch.bincount(_umod(hash_u64(key[i * per:(i + 1) * per]),
+                                        n_shards), minlength=n_shards).max())
+               for i in range(n_shards))
+
+
+def p34_cap(key: torch.Tensor, n_shards: int, slack: float = P34_SLACK):
+    """A per-destination shuffle cap of `slack` times the uniform share,
+    raised to the largest bucket the keys make (printed)."""
+    per = key.shape[0] // n_shards
+    biggest = p34_largest_bucket(key, n_shards)
+    return max(math.ceil(slack * per / n_shards), biggest), biggest
+
+
+def zipf_keys(n: int, domain: int, s: float, dev) -> torch.Tensor:
+    """Ranks in [0, domain) with P(rank r) ~ (r + 1)^-s: the continuous
+    inverse CDF of x^-s over [1, domain + 1) at splitmix's uniforms."""
+    u = (_lsr(splitmix(n, 31 * n, dev), 11).to(torch.float64) + 0.5) / 2 ** 53
+    a = 1.0 - s
+    x = (1.0 + u * ((domain + 1.0) ** a - 1.0)) ** (1.0 / a)
+    return torch.clamp(x.to(torch.int64) - 1, 0, domain - 1)
+
+
+def _trimmed(mask: torch.Tensor, *arrays: torch.Tensor):
+    return tuple(a[mask] for a in arrays)
+
+
+def _same_tensor(got, want, what: str) -> None:
+    if got.shape != want.shape or not torch.equal(_bits(got), _bits(want)):
+        raise AssertionError(f"{what}: differs from the single-device answer "
+                             f"({tuple(got.shape)} against "
+                             f"{tuple(want.shape)})")
+
+
+def _site_from(calls, call_site: str, launches: int) -> dict:
+    """K1 at a parallel call site, from the recorded call (of one shard's
+    thread) that kept the most rows, against its plain version: the
+    kernels-line entry."""
+    (args, kwargs) = max(calls, key=lambda c: int(c[0][0].sum()))
+    keep, arrays = args[0], tuple(args[1])
+    site = _compact_site(
+        f"phase 34 {call_site}, {keep.shape[0]:,} rows, "
+        f"{float(keep.float().mean()):.2%} kept", keep, arrays,
+        kwargs.get("out_cap"),
+        lambda: (tuple(a[keep] for a in arrays), keep.nonzero()),
+        kwargs.get("positions"))
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    return _entry(site, launches, err)
+
+
+def p34_config4(mesh, dev, meter, groups: int, site: bool):
+    """dist_group_by over config 4's rows, equal to the single-device
+    group_by of the same rows (computed first and kept on the host)."""
+    from arrow_tpu_torch import parallel as par
+    from arrow_tpu_torch.ops.groupby import AggSpec, group_by
+    n, ns = P34_CONFIG4_ROWS, mesh.size
+    what = f"config 4, {n:,} rows x {groups:,} groups"
+    table = config4_table(n, groups, dev)
+    single = meter.host(f"{what} single-device group_by", lambda: group_by(
+        table, ["k"], [AggSpec("v", op) for op in CONFIG4_AGGS]))
+    want = [single.column(c).values.cpu() for c in
+            ["k"] + [f"v_{op}" for op in CONFIG4_AGGS]]
+    del single
+    torch.cuda.empty_cache()
+    k, v = table.column("k").values, table.column("v").values
+    cap, biggest = p34_cap(k, ns)
+    group_cap = min(groups, math.ceil(groups / ns * 1.02) + 64)
+    print(f"phase 34 {what}: shuffle cap {cap:,} a destination (largest "
+          f"bucket {biggest:,}; uniform share {n // ns // ns:,}), group cap "
+          f"{group_cap:,} a shard", flush=True)
+    ok = torch.ones(n, dtype=torch.bool, device=dev)
+
+    def body(comm, kk, vv, okk):
+        gk, gv, outs, over = par.dist_group_by(
+            comm, kk, okk, cap, group_cap, [(op, vv) for op in CONFIG4_AGGS])
+        return gk, gv, tuple(outs), over
+
+    step = par.shard_map(body, mesh, (0, 0, 0), (0, 0, (0,) * 4, None))
+    (gk, gv, outs, over), launches, (calls,) = meter.counted(
+        what, "compact", lambda: meter.host(f"{what} dist_group_by",
+                                            lambda: step(k, v, ok)),
+        ("compact", "parallel.dist"))
+    if bool(over):
+        raise AssertionError(f"phase 34 {what}: capacity overflow")
+    del table, k, v, ok
+    got = _trimmed(gv, gk, *outs)
+    order = torch.argsort(got[0])
+    for g, w, name in zip(got, want, ["k"] + list(CONFIG4_AGGS)):
+        _same_tensor(g[order], w.to(dev), f"phase 34 {what}: {name}")
+    print(f"phase 34 {what}: {int(gv.sum()):,} groups over {ns} shards "
+          f"equal to the single-device group_by; dist_group_by "
+          f"{meter.seconds[f'{what} dist_group_by']:.3f} s, single-device "
+          f"{meter.seconds[f'{what} single-device group_by']:.3f} s (host "
+          f"clock, synced)", flush=True)
+    del gk, gv, outs, got, want
+    entry = None
+    if site:
+        entry = _site_from(calls, f"config 4 local_group_aggregate run "
+                           f"starts (one of {ns} shards)", launches["compact"])
+    del calls
+    torch.cuda.empty_cache()
+    return entry
+
+
+def p34_config3(mesh, dev, meter) -> None:
+    """dist_sort of config 3's Int64 keys (their order keys) with the row
+    ids riding, equal as a sequence to one stable torch.sort."""
+    from arrow_tpu_torch import parallel as par
+    n, ns = P34_CONFIG3_ROWS, mesh.size
+    what = f"config 3, dist_sort of {n:,} Int64 keys"
+    k = config3_table(n, dev).column("k")
+    valid = k.validity
+    rows = torch.arange(n, device=dev)
+    sel = valid.nonzero().squeeze(1)
+    want_k, o = meter.host(f"{what} single-device sort", lambda: torch.sort(
+        k.values[sel], stable=True))
+    want_rows = sel[o]
+    del sel, o
+    # nulls are invalid rows, which go to the last shard with the sentinel
+    cap = n // ns // 2
+    key = k.values ^ (-(1 << 63))          # Int64's u64 order key
+
+    def body(comm, kk, okk, rr):
+        sk, sv, (sr,), over = par.dist_sort(comm, kk, okk, cap, (rr,))
+        return sk, sv, sr, over
+
+    step = par.shard_map(body, mesh, (0, 0, 0), (0, 0, 0, None))
+    sk, sv, sr, over = meter.host(f"{what} dist_sort",
+                                  lambda: step(key, valid, rows))
+    if bool(over):
+        raise AssertionError(f"phase 34 {what}: capacity overflow")
+    got_k, got_rows = _trimmed(sv, sk, sr)
+    _same_tensor(got_k ^ (-(1 << 63)), want_k, f"phase 34 {what}: keys")
+    _same_tensor(got_rows, want_rows, f"phase 34 {what}: row ids")
+    print(f"phase 34 {what}: {got_k.shape[0]:,} valid rows globally sorted "
+          f"over {ns} shards, equal to one stable torch.sort; dist_sort "
+          f"{meter.seconds[f'{what} dist_sort']:.3f} s (host clock, "
+          f"synced)", flush=True)
+    del k, valid, rows, key, sk, sv, sr, got_k, got_rows, want_k, want_rows
+    torch.cuda.empty_cache()
+
+
+def _pairs(left, right):
+    """(left, right) row-id pairs sorted by left then right."""
+    o = torch.argsort(left * (1 << 24) + right) if left.numel() \
+        else left
+    return left[o], right[o]
+
+
+def p34_config5(mesh, dev, meter) -> dict:
+    """dist_join_unique, dist_join and dist_join_skew at config 5's sizes,
+    each equal to the single-device join_indices; returns the kernels
+    entry of K1 at _compact_front."""
+    from arrow_tpu_torch import parallel as par
+    from arrow_tpu_torch.ops.join import join_indices
+    n, nb, ns = P34_PROBE, P34_BUILD, mesh.size
+    what = f"config 5, {n:,} probe x {nb:,} build rows"
+    build = torch.arange(nb, device=dev) * 2
+    prow = torch.arange(n, device=dev)
+    brow = torch.arange(nb, device=dev)
+    ones_p = torch.ones(n, dtype=torch.bool, device=dev)
+    ones_b = torch.ones(nb, dtype=torch.bool, device=dev)
+    bcap, _ = p34_cap(build, ns)
+    entry = None
+    for skewed in (False, True):
+        probe = 2 * zipf_keys(n, nb, P34_ZIPF, dev) if skewed \
+            else config5_keys(n, 0, 2 * nb, dev)
+        name = f"{what}, {'Zipf(1.1)' if skewed else 'config-5'} keys"
+        li, ri = meter.host(f"{name} single-device join_indices",
+                            lambda: join_indices(key_table(k=probe),
+                                                 key_table(k=build), ["k"]))
+        want = _pairs(li, ri)
+        del li, ri
+        if skewed:
+            pcap = math.ceil(2 * n / ns / ns)
+            print(f"phase 34 {name}: light probe cap {pcap:,} a "
+                  f"destination", flush=True)
+
+            def body(comm, pk, pok, pr, bk, bok, br):
+                light, (hit_h, (got_h,), hover) = par.dist_join_skew(
+                    comm, pk, pok, (pr,), bk, bok, (br,), pcap, bcap)
+                lk, lvalid, (lpr,), lhit, (lbr,), lover = light
+                m = lvalid & lhit
+                return m, lpr, lbr, hit_h, got_h, lover | hover
+
+            step = par.shard_map(body, mesh, (0,) * 6,
+                                 (0, 0, 0, 0, 0, None))
+            out, launches, (calls,) = meter.counted(
+                f"{name} dist_join_skew", "compact",
+                lambda: meter.host(f"{name} dist_join_skew", lambda: step(
+                    probe, ones_p, prow, build, ones_b, brow)),
+                ("compact", "parallel.dist"))
+            m, lpr, lbr, hit_h, got_h, over = out
+            if bool(over):
+                raise AssertionError(f"phase 34 {name}: capacity overflow")
+            heavy = int(hit_h.sum())
+            got = _pairs(torch.cat([lpr[m], prow[hit_h]]),
+                         torch.cat([lbr[m], got_h[hit_h]]))
+            for g, w, side in zip(got, want, ("probe", "build")):
+                _same_tensor(g, w, f"phase 34 {name} dist_join_skew: "
+                             f"{side} rows")
+            print(f"phase 34 {name}: dist_join_skew matched {got[0].shape[0]:,}"
+                  f" rows ({heavy:,} on the heavy keys' local path), equal "
+                  f"to join_indices; {meter.seconds[f'{name} dist_join_skew']:.3f}"
+                  f" s (host clock, synced)", flush=True)
+            del out, m, lpr, lbr, hit_h, got_h, got
+            entry = _site_from(calls, f"config 5 dist_join_skew "
+                               f"_compact_front of the heavy build rows (one "
+                               f"of {ns} shards)", launches["compact"])
+            del calls
+        else:
+            pcap, biggest = p34_cap(probe, ns)
+            print(f"phase 34 {name}: probe cap {pcap:,} a destination "
+                  f"(largest bucket {biggest:,}), build cap {bcap:,}",
+                  flush=True)
+
+            def unique(comm, pk, pok, pr, bk, bok, br):
+                _, pvalid, (spr,), hit, (sbr,), over = par.dist_join_unique(
+                    comm, pk, pok, (pr,), bk, bok, (br,), pcap, bcap)
+                return pvalid & hit, spr, sbr, over
+
+            def general(comm, pk, pok, pr, bk, bok, br):
+                ov, _, (spr,), (sbr,), over = par.dist_join(
+                    comm, pk, pok, (pr,), bk, bok, (br,), pcap, bcap,
+                    ns * pcap)
+                return ov, spr, sbr, over
+
+            for fn, call in ((unique, "dist_join_unique"),
+                             (general, "dist_join")):
+                step = par.shard_map(fn, mesh, (0,) * 6, (0, 0, 0, None))
+                m, spr, sbr, over = meter.host(f"{name} {call}", lambda: step(
+                    probe, ones_p, prow, build, ones_b, brow))
+                if bool(over):
+                    raise AssertionError(f"phase 34 {name} {call}: capacity "
+                                         f"overflow")
+                got = _pairs(spr[m], sbr[m])
+                for g, w, side in zip(got, want, ("probe", "build")):
+                    _same_tensor(g, w, f"phase 34 {name} {call}: {side} rows")
+                print(f"phase 34 {name}: {call} matched {got[0].shape[0]:,} "
+                      f"rows, equal to join_indices; "
+                      f"{meter.seconds[f'{name} {call}']:.3f} s (host clock, "
+                      f"synced)", flush=True)
+                del m, spr, sbr, got
+        del probe, want
+        torch.cuda.empty_cache()
+    return entry
+
+
+def _pick(t, names, rename=None):
+    """The named columns of a table, `rename` mapping old names to new."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.table import Table
+    rename = rename or {}
+    return Table([t.column(c) for c in names], dt.Schema(tuple(
+        t.schema.field(c).with_name(rename.get(c, c)) for c in names)))
+
+
+def _same_tables(got, want, what: str) -> None:
+    for name in want.column_names:
+        g, w = got.column(name), want.column(name)
+        if g.to_pylist() != w.to_pylist():
+            raise AssertionError(f"{what}: column {name} differs from the "
+                                 f"single-device answer")
+
+
+def p34_table_api(mesh, dev, meter) -> list:
+    """dist_table_group_by, dist_table_sort and dist_table_join over TPC-H
+    SF1, each equal to the single-device group_by / sort_table / join;
+    returns the kernels entries of K1 at the three trims."""
+    from arrow_tpu_torch import parallel as par
+    from arrow_tpu_torch.ops.groupby import AggSpec, group_by
+    from arrow_tpu_torch.ops.join import join
+    from arrow_tpu_torch.ops.sort import SortOptions, sort_table
+    tabs, _ = tpch_tables(P34_SF1_ROWS, P31_CUSTOMERS, dev, text=False)
+    li, od = tabs["lineitem"], tabs["orders"]
+    del tabs
+    what = f"TPC-H SF1 ({li.num_rows:,} lineitem rows)"
+    entries = []
+
+    keys = ["l_returnflag", "l_linestatus"]
+    lg = _pick(li, keys + ["l_quantity", "l_extendedprice", "l_orderkey"])
+    aggs = [AggSpec("l_quantity", "sum"), AggSpec("l_quantity", "count"),
+            AggSpec("l_extendedprice", "min"),
+            AggSpec("l_extendedprice", "max"), AggSpec("l_orderkey", "sum")]
+    want = group_by(lg, keys, aggs)
+    got, launches, (calls,) = meter.counted(
+        f"{what} dist_table_group_by", "compact",
+        lambda: meter.host(f"{what} dist_table_group_by",
+                           lambda: par.dist_table_group_by(lg, keys, aggs,
+                                                           mesh)),
+        ("compact", "parallel.api"))
+    _same_tables(got, want, f"phase 34 {what} dist_table_group_by")
+    print(f"phase 34 {what}: dist_table_group_by by (l_returnflag, "
+          f"l_linestatus), {got.num_rows} groups, equal to group_by; "
+          f"{meter.seconds[f'{what} dist_table_group_by']:.3f} s", flush=True)
+    entries.append(_site_from(calls, "dist_table_group_by trim",
+                              launches["compact"]))
+    del lg, got, want, calls
+
+    ls = _pick(li, ["l_shipdate", "l_orderkey", "l_extendedprice"])
+    desc, asc = SortOptions(descending=True), SortOptions()
+    want = sort_table(ls, [("l_shipdate", desc), ("l_orderkey", asc)])
+    got, launches, (calls,) = meter.counted(
+        f"{what} dist_table_sort", "compact",
+        lambda: meter.host(f"{what} dist_table_sort", lambda:
+                           par.dist_table_sort(ls, ["l_shipdate",
+                                                    "l_orderkey"],
+                                               [desc, asc], mesh=mesh)),
+        ("compact", "parallel.api"))
+    for name in ls.column_names:
+        _same_tensor(got.column(name).values, want.column(name).values,
+                     f"phase 34 {what} dist_table_sort: {name}")
+    print(f"phase 34 {what}: dist_table_sort by l_shipdate descending, "
+          f"l_orderkey equal to sort_table; "
+          f"{meter.seconds[f'{what} dist_table_sort']:.3f} s", flush=True)
+    del ls, got, want
+    entries.append(_site_from(calls, "dist_table_sort trim",
+                              launches["compact"]))
+    del calls
+
+    lj = _pick(li, ["l_orderkey", "l_linenumber", "l_quantity"])
+    oj = _pick(od, ["o_orderkey", "o_totalprice", "o_orderdate"],
+               {"o_orderkey": "l_orderkey"})
+    del li, od
+    want = join(lj, oj, ["l_orderkey"])
+    got, launches, (calls,) = meter.counted(
+        f"{what} dist_table_join", "compact",
+        lambda: meter.host(f"{what} dist_table_join",
+                           lambda: par.dist_table_join(lj, oj, ["l_orderkey"],
+                                                       mesh)),
+        ("compact", "parallel.api"))
+    if got.num_rows != want.num_rows:
+        raise AssertionError(f"phase 34 {what} dist_table_join: "
+                             f"{got.num_rows} rows, join {want.num_rows}")
+
+    def by_line(t):
+        o = torch.argsort(t.column("l_orderkey").values * 8
+                          + t.column("l_linenumber").values.to(torch.int64))
+        return {c: t.column(c).values[o] for c in t.column_names}
+    g, w = by_line(got), by_line(want)
+    for name in w:
+        _same_tensor(g[name], w[name], f"phase 34 {what} dist_table_join: "
+                     f"{name}")
+    print(f"phase 34 {what}: dist_table_join of lineitem and orders on "
+          f"l_orderkey, {got.num_rows:,} rows, equal to join (as rows); "
+          f"{meter.seconds[f'{what} dist_table_join']:.3f} s", flush=True)
+    del lj, oj, got, want, g, w
+    entries.append(_site_from(calls, "dist_table_join trim",
+                              launches["compact"]))
+    del calls
+    torch.cuda.empty_cache()
+    return entries
+
+
+def p34_nccl(dev, meter, backend: str = "nccl") -> None:
+    """dist_group_by through ProcessGroupComm over NCCL at world size 1 in
+    this process, equal to the LocalMesh of one shard: the NCCL calls
+    launch.  Runs over several GPUs are not covered."""
+    import datetime
+    import tempfile
+    import torch.distributed as tdist
+    from arrow_tpu_torch import parallel as par
+    n = P34_NCCL_ROWS
+    table = config4_table(n, GROUPS, dev)
+    k, v = table.column("k").values, table.column("v").values
+    ok = torch.ones(n, dtype=torch.bool, device=dev)
+    specs = [(op, v) for op in CONFIG4_AGGS]
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        tdist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                                 rank=0, world_size=1,
+                                 timeout=datetime.timedelta(seconds=300))
+        try:
+            comm = par.ProcessGroupComm()
+            got = meter.host("NCCL dist_group_by", lambda: par.dist_group_by(
+                comm, k, ok, n, GROUPS, specs))
+            backend = tdist.get_backend()
+        finally:
+            tdist.destroy_process_group()
+    want = par.shard_map(lambda comm, kk, okk, vv: par.dist_group_by(
+        comm, kk, okk, n, GROUPS, [(op, vv) for op in CONFIG4_AGGS]),
+        par.make_mesh(1, dev), (0, 0, 0), (0, 0, (0,) * 4, None))(k, ok, v)
+    for i, (g, w) in enumerate(zip([got[0], got[1], *got[2], got[3]],
+                                   [want[0], want[1], *want[2], want[3]])):
+        _same_tensor(g, w, f"phase 34 NCCL dist_group_by output {i}")
+    print(f"phase 34 NCCL ({backend}, world size 1): dist_group_by of "
+          f"{n:,} rows through ProcessGroupComm equal to the one-shard "
+          f"LocalMesh; {meter.seconds['NCCL dist_group_by']:.3f} s",
+          flush=True)
+
+
+def run_phase34(dev, profile: bool) -> list:
+    """Phase 34: the distributed operators over a LocalMesh of 8 shards on
+    the one card (the reference's 8-device mesh): the dry run, configs
+    4, 3 and 5 and the table API over TPC-H SF1, each equal to its
+    single-device answer, then the NCCL route at world size 1.  Returns
+    the kernels entries of K1 at the parallel call sites."""
+    from arrow_tpu_torch import parallel as par
+    from arrow_tpu_torch.parallel.dryrun import dryrun_multichip
+    what = "phase 34"
+    meter = CardMeter(profile, what)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    meter.host("dryrun_multichip", lambda: dryrun_multichip(P34_SHARDS, dev))
+    print(f"{what}: dryrun_multichip({P34_SHARDS}, {dev}) passes every "
+          f"host-truth check ({meter.seconds['dryrun_multichip']:.2f} s)",
+          flush=True)
+    mesh = par.make_mesh(P34_SHARDS, dev)
+    entries = []
+    for groups in P34_CONFIG4_GROUPS:
+        e = p34_config4(mesh, dev, meter, groups,
+                        site=groups == P34_CONFIG4_GROUPS[-1])
+        entries += [e] if e is not None else []
+    p34_config3(mesh, dev, meter)
+    entries.append(p34_config5(mesh, dev, meter))
+    entries += p34_table_api(mesh, dev, meter)
+    p34_nccl(dev, meter)
+    print(f"{what}: seconds (host clock, synced): " + json.dumps(
+        {k: round(v, 3) for k, v in meter.seconds.items()})
+        + f"; peak device memory {meter.peak_gib():.2f} GiB", flush=True)
+    return entries
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace the group-bys, the joins, configs 2 "
-                         "and 3 and phases 24-29 with torch.profiler")
+                         "and 3 and phases 24-29 with torch.profiler "
+                         "(phase 34 is host-clock timed only)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -5335,7 +5810,8 @@ def main(argv=None) -> int:
     lap("phase 31", lambda: run_phase31(dev, args.profile))
     e32 = lap("phase 32", lambda: run_phase32(dev, args.profile))
     e33 = lap("phase 33", lambda: run_phase33(dev, args.profile))
-    entries += e26 + e27 + e28 + e29 + e30 + e32 + e33
+    e34 = lap("phase 34", lambda: run_phase34(dev, args.profile))
+    entries += e26 + e27 + e28 + e29 + e30 + e32 + e33 + e34
     print("seconds by step (host clock): " + json.dumps(
         {k: round(v, 1) for k, v in laps.items()}), flush=True)
 
