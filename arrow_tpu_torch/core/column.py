@@ -69,8 +69,19 @@ class Column:
     def slice(self, offset: int, length: int) -> "Column":
         raise NotImplementedError
 
+    def with_validity(self, validity: vd.Mask) -> "Column":
+        raise NotImplementedError
+
     def to_pylist(self) -> list:
         raise NotImplementedError
+
+    def equals(self, other) -> bool:
+        """Logical equality (arrow_tpu/core/column.py:89-100; arrow-data
+        equal/): the same type, length, null positions and values, floats
+        by their bits (NaN equals NaN, -0.0 differs from 0.0).  Computed
+        on the column's device with one host sync (core/equal.py)."""
+        from .equal import column_equals
+        return column_equals(self, other)
 
     def __arrow_c_array__(self, requested_schema=None):
         """The Arrow PyCapsule protocol (io/cdata.py;
@@ -152,8 +163,18 @@ class PrimitiveColumn(Column):
     def with_validity(self, validity: vd.Mask) -> "PrimitiveColumn":
         return PrimitiveColumn(self.values, self.dtype, validity)
 
-    def to_numpy(self) -> np.ndarray:
-        """Host copy of the values in the logical numpy dtype."""
+    def with_values(self, values: torch.Tensor,
+                    dtype: Optional[dt.DataType] = None, *,
+                    _canonical: bool = True) -> "PrimitiveColumn":
+        """New values (of `dtype`, this column's type when None) under
+        this column's validity (arrow_tpu/core/column.py:161)."""
+        return PrimitiveColumn(values, dtype or self.dtype, self.validity,
+                               _canonical=_canonical)
+
+    def to_numpy(self, zero_nulls: bool = True) -> np.ndarray:
+        """Host copy of the values in the logical numpy dtype.  Null slots
+        hold zeros whatever `zero_nulls` says: they are zeroed at
+        construction (the reference ignores the flag too)."""
         return self.values.cpu().numpy().view(self.dtype.to_numpy())
 
     def to_pylist(self) -> list:
@@ -298,6 +319,11 @@ class StringColumn(Column):
                 else data[offs[i]:offs[i + 1]].decode() if text
                 else data[offs[i]:offs[i + 1]] for i in range(len(self))]
 
+    def to_pylist_host(self) -> list:
+        """The rows from one host copy of the offsets and bytes
+        (arrow_tpu/core/column.py:244), as `to_pylist` lists them."""
+        return self.to_pylist()
+
 
 class DictionaryColumn(Column):
     """Dictionary-encoded column (arrow-array dictionary_array.rs:243).
@@ -329,16 +355,31 @@ class DictionaryColumn(Column):
     def device(self) -> torch.device:
         return self.codes.device
 
+    @property
+    def ordered(self) -> bool:
+        return bool(self.dtype.ordered)
+
+    @property
+    def dictionary_size(self) -> int:
+        return len(self.values)
+
     def slice(self, offset, length):
         v = None if self.validity is None \
             else self.validity[offset:offset + length]
         return DictionaryColumn(self.codes[offset:offset + length],
                                 self.values, v, _canonical=True,
-                                ordered=bool(self.dtype.ordered))
+                                ordered=self.ordered)
 
     def with_validity(self, validity: vd.Mask) -> "DictionaryColumn":
         return DictionaryColumn(self.codes, self.values, validity,
-                                ordered=bool(self.dtype.ordered))
+                                ordered=self.ordered)
+
+    def with_codes(self, codes: torch.Tensor, *,
+                   _canonical: bool = True) -> "DictionaryColumn":
+        """New codes over the same dictionary and validity
+        (arrow_tpu/core/column.py:308)."""
+        return DictionaryColumn(codes, self.values, self.validity,
+                                _canonical=_canonical, ordered=self.ordered)
 
     def to_pylist(self) -> list:
         vals = self.values.to_pylist()

@@ -12,6 +12,7 @@ from .. import dtypes as dt
 from ..config import DeviceLike
 from ..errors import ArrowInvalid, SchemaError
 from .column import Column, column as make_column, from_numpy
+from .equal import columns_equal
 
 __all__ = ["Table", "RecordBatch"]
 
@@ -103,8 +104,75 @@ class Table:
             return self.columns[self.schema.index_of(i)]
         return self.columns[i]
 
+    def __getitem__(self, i) -> Column:
+        return self.column(i)
+
     def __len__(self) -> int:
         return self.num_rows
+
+    def equals(self, other) -> bool:
+        """RecordBatch PartialEq (arrow_tpu/core/table.py:95-114): the
+        fields' names, types, nullability and metadata, the schema's
+        metadata, then every column logically equal, on the columns'
+        device with one host sync for the whole table (core/equal.py)."""
+        if self is other:
+            return True
+        if not isinstance(other, Table):
+            return False
+        if len(self.schema.fields) != len(other.schema.fields):
+            return False
+        if sorted(self.schema.metadata) != sorted(other.schema.metadata):
+            return False
+        for f, g in zip(self.schema.fields, other.schema.fields):
+            if (f.name, f.dtype, f.nullable) != (g.name, g.dtype,
+                                                 g.nullable):
+                return False
+            if sorted(f.metadata) != sorted(g.metadata):
+                return False
+        return columns_equal(list(zip(self.columns, other.columns)))
+
+    def select(self, names_or_indices) -> "Table":
+        """The columns named or numbered, in that order: the same column
+        objects under a projected schema."""
+        idx = [self.schema.index_of(i) if isinstance(i, str) else i
+               for i in names_or_indices]
+        return Table(tuple(self.columns[i] for i in idx),
+                     self.schema.project(idx), _validated=True)
+
+    def set_column(self, i: int, field: dt.Field, col: Column) -> "Table":
+        """Column i replaced by `col` under `field`; `col` must be on the
+        other columns' device."""
+        self._check_device(col, skip=i)
+        cols = list(self.columns)
+        fields = list(self.schema.fields)
+        cols[i] = col
+        fields[i] = field
+        return Table(tuple(cols), dt.Schema(tuple(fields)))
+
+    def append_column(self, name: str, col: Column) -> "Table":
+        """`col` added last, nullable when it has a validity; it must be on
+        the table's device."""
+        self._check_device(col)
+        return Table(self.columns + (col,),
+                     dt.Schema(self.schema.fields + (
+                         dt.Field(name, col.dtype,
+                                  nullable=col.validity is not None),)))
+
+    def drop_column(self, name: str) -> "Table":
+        idx = self.schema.index_of(name)
+        return self.select([i for i in range(self.num_columns) if i != idx])
+
+    def rename_columns(self, names: Sequence[str]) -> "Table":
+        fields = tuple(f.with_name(n)
+                       for f, n in zip(self.schema.fields, names))
+        return Table(self.columns, dt.Schema(fields), _validated=True)
+
+    def _check_device(self, col: Column, skip: Optional[int] = None):
+        devs = {c.device for i, c in enumerate(self.columns) if i != skip}
+        if devs and devs != {col.device}:
+            raise ArrowInvalid(
+                f"a column on {col.device} in a table on "
+                f"{sorted(str(d) for d in devs)}")
 
     def slice(self, offset: int, length: int) -> "Table":
         """Rows [offset, offset + length), sharing the columns' storage

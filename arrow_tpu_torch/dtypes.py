@@ -39,6 +39,7 @@ __all__ = [
     "union", "run_end_encoded", "Field", "Schema", "ExtensionType", "uuid",
     "json_", "bool8", "fixed_shape_tensor", "opaque", "from_numpy_dtype",
     "torch_dtype_name", "widen", "storage_int", "integer_bounds",
+    "INT_MIN", "INT_MAX", "UINT_MAX",
 ]
 
 
@@ -342,10 +343,22 @@ def storage_int(x: int) -> int:
     return x - (1 << 64) if x >= 1 << 63 else x
 
 
-def integer_bounds(d: DataType) -> Tuple[int, int]:
-    """(lo, hi) inclusive value bounds of an integer logical type."""
-    info = np.iinfo(d.to_numpy())
-    return int(info.min), int(info.max)
+INT_MIN = {n: -(2 ** (8 * 2 ** i - 1)) for i, n in enumerate(
+    ("int8", "int16", "int32", "int64"))}
+INT_MAX = {n: 2 ** (8 * 2 ** i - 1) - 1 for i, n in enumerate(
+    ("int8", "int16", "int32", "int64"))}
+UINT_MAX = {n: 2 ** (8 * 2 ** i) - 1 for i, n in enumerate(
+    ("uint8", "uint16", "uint32", "uint64"))}
+
+
+def integer_bounds(dt: DataType) -> Tuple[int, int]:
+    """(lo, hi) inclusive value bounds of an integer logical type; any
+    other type raises TypeError (arrow_tpu/dtypes.py:452-458)."""
+    if dt.is_signed_integer:
+        return INT_MIN[dt.name], INT_MAX[dt.name]
+    if dt.is_unsigned_integer:
+        return 0, UINT_MAX[dt.name]
+    raise TypeError(f"not an integer type: {dt}")
 
 
 def from_numpy_dtype(d) -> DataType:

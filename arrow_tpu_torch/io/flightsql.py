@@ -36,7 +36,15 @@ from .flight import (FlightDescriptor, FlightInfo, FlightServer,
                      _empty_table, schema_ipc_bytes)
 
 __all__ = ["FlightSQLServer", "FlightSQLClient", "simple_sql_executor",
-           "simple_sql_update_executor"]
+           "simple_sql_update_executor", "dt_schema"]
+
+
+def dt_schema(names, cols):
+    """A schema of nullable fields named `names`, typed as `cols`
+    (arrow_tpu/io/flightsql.py:29)."""
+    from .. import dtypes as _dt
+    return _dt.Schema(tuple(_dt.Field(n, c.dtype)
+                            for n, c in zip(names, cols)))
 
 _TYPE_PREFIX = "type.googleapis.com/arrow.flight.protocol.sql."
 

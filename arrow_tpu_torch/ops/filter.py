@@ -56,6 +56,19 @@ class FilterPredicate:
         self.keep = keep.contiguous()
         sync_guard("filter")
         self.count = int(keep.sum())     # host sync: one scalar
+        self._indices = None
+
+    @property
+    def indices(self) -> PrimitiveColumn:
+        """The kept rows' positions, int32 in row order (filter.py:62-67),
+        made once: one K1 launch on the card (its positions alone, `count`
+        rows), `compact_plain` on the CPU.  Past 2^31 rows int32
+        positions raise, as K1's do."""
+        if self._indices is None:
+            (pos,), _ = compact(self.keep, (), out_cap=self.count,
+                                positions=torch.int32)
+            self._indices = PrimitiveColumn(pos, dt.int32, _canonical=True)
+        return self._indices
 
 
 def _predicate(predicate) -> FilterPredicate:

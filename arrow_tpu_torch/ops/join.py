@@ -53,6 +53,7 @@ from ..core.column import (Column, DictionaryColumn, PrimitiveColumn,
 from ..core.table import Table
 from ..errors import ArrowInvalid
 from ..kernels.compact import compact
+from ..utils.bits import lsr, mix64
 from .row_format import encode_value_key
 from .strings import (_dict_slot_validity, dictionary_encode,
                       merged_string_ranks)
@@ -67,18 +68,6 @@ _MAX_ROWS = 1 << 31
 _MIX = dt.storage_int(0x9E3779B97F4A7C15)   # splitmix64 golden ratio
 
 
-def _lsr(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Logical shift right of u64 bits in int64 storage."""
-    return (x >> k) & ((1 << (64 - k)) - 1)
-
-
-def _mix64(x: torch.Tensor) -> torch.Tensor:
-    """splitmix64's finaliser; products wrap in the u64 bits."""
-    x = (x ^ _lsr(x, 30)) * dt.storage_int(0xBF58476D1CE4E5B9)
-    x = (x ^ _lsr(x, 27)) * dt.storage_int(0x94D049BB133111EB)
-    return x ^ _lsr(x, 31)
-
-
 def _fold(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     """One u64 key per row from several: exact for one column, a mixed
     hash for more (collisions possible: callers verify)."""
@@ -86,7 +75,7 @@ def _fold(keys: Sequence[torch.Tensor]) -> torch.Tensor:
         return keys[0]
     key = torch.zeros_like(keys[0])
     for k in keys:
-        key = _mix64(key ^ (k + _MIX + (key << 6) + _lsr(key, 2)))
+        key = mix64(key ^ (k + _MIX + (key << 6) + lsr(key, 2)))
     return key
 
 

@@ -22,31 +22,21 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.bits import lsr, mix64
+
 __all__ = ["hash_u64", "bucketize", "exchange", "ShuffleResult",
            "repartition_arrays"]
 
-_M1 = 0xBF58476D1CE4E5B9 - (1 << 64)      # splitmix64's multipliers,
-_M2 = 0x94D049BB133111EB - (1 << 64)      # as int64
-
-
-def _lsr(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Logical shift right of u64 bits on int64 storage."""
-    return (x >> k) & ((1 << (64 - k)) - 1)
-
-
 def _umod(x: torch.Tensor, m: int) -> torch.Tensor:
     """u64 x % m on int64 storage (m < 2^62)."""
-    return ((_lsr(x, 1) % m) * 2 + (x & 1)) % m
+    return ((lsr(x, 1) % m) * 2 + (x & 1)) % m
 
 
 def hash_u64(key: torch.Tensor) -> torch.Tensor:
     """splitmix64 finalizer over u64 order keys (int64 storage): uniform
     shard assignment even for sequential keys.  Multiply and xor wrap
     the same on int64 as on u64."""
-    x = key.to(torch.int64)
-    x = (x ^ _lsr(x, 30)) * _M1
-    x = (x ^ _lsr(x, 27)) * _M2
-    return x ^ _lsr(x, 31)
+    return mix64(key.to(torch.int64))
 
 
 class ShuffleResult(NamedTuple):

@@ -344,6 +344,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -3384,6 +3385,25 @@ class CardMeter:
         self.seconds[name] = time.perf_counter() - t0
         return out
 
+    def reads(self, fn):
+        """fn's result, the host syncs it made (torch's sync debug mode
+        warns at each), the card's peak memory over it and the memory
+        held before it, GiB."""
+        self.peak_gib()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2 ** 30
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = sum("called a synchronizing" in str(w.message) for w in seen)
+        return out, syncs, torch.cuda.max_memory_allocated() / 2 ** 30, held
+
     def counted(self, name, must, fn, *watches, exactly=None):
         """fn's result, the launch counts over it and each watched
         function's recorded calls; `must` launched at least once, and
@@ -3980,6 +4000,177 @@ def _launched_each(by_site, others, launches, dev, what: str) -> None:
                              f"for {on_card} calls on the card")
 
 
+def _planted(n: int):
+    """The rows of the float column's -0.0 and NaN."""
+    return n // 7, n // 5
+
+
+def _tensors(t) -> set:
+    """The data pointers of every tensor of a table."""
+    from torch.utils import _pytree as pytree
+    return {x.data_ptr() for x in pytree.tree_leaves(t)
+            if isinstance(x, torch.Tensor)}
+
+
+def _priced(t):
+    """`t` with l_extendedprice's value as a float64 column appended
+    (its Decimal128(15, 2) low limb over 100), -0.0 and a NaN planted."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import PrimitiveColumn
+    price = t.column("l_extendedprice").limbs[:, 0].to(torch.float64) / 100
+    zero, nan = _planted(t.num_rows)
+    price[zero] = -0.0
+    price[nan] = float("nan")
+    return t.append_column("l_price_f64", PrimitiveColumn(price, dt.float64))
+
+
+def _changed_copies(t, row: int) -> dict:
+    """Copies of `t` (from _priced) each changed in one thing, made when
+    called: a float's sign of zero, a NaN's payload, one decimal limb
+    bit, one string byte, one validity bit, the column order, one field's
+    metadata."""
+    from arrow_tpu_torch import dtypes as dt
+    from arrow_tpu_torch.core.column import PrimitiveColumn, StringColumn
+    from arrow_tpu_torch.core.nested import DecimalColumn
+    fi = t.schema.index_of("l_price_f64")
+    zero, nan = _planted(t.num_rows)
+
+    def price_bits(i, bits):
+        v = t.column(fi).values.clone()
+        v.view(torch.int64)[i] = bits
+        return t.set_column(fi, t.schema.fields[fi],
+                            PrimitiveColumn(v, dt.float64))
+
+    def limb():
+        j = t.schema.index_of("l_discount")
+        c = t.column(j)
+        limbs = c.limbs.clone()
+        limbs[row, 1] ^= 1 << 40
+        return t.set_column(j, t.schema.fields[j],
+                            DecimalColumn(limbs, c.dtype, c.validity))
+
+    def byte():
+        j = t.schema.index_of("l_comment")
+        c = t.column(j)
+        data = c.data.clone()
+        data[c.offsets[row].to(torch.int64)] ^= 1
+        return t.set_column(j, t.schema.fields[j],
+                            StringColumn(c.offsets, data, c.dtype, c.validity))
+
+    def validity():
+        j = t.schema.index_of("l_quantity")
+        mask = torch.ones(t.num_rows, dtype=torch.bool,
+                          device=t.column(j).device)
+        mask[row] = False
+        return t.set_column(j, t.schema.fields[j],
+                            t.column(j).with_validity(mask))
+
+    def metadata():
+        j = t.schema.index_of("l_shipmode")
+        f = t.schema.fields[j]
+        return t.set_column(j, dt.Field(f.name, f.dtype, f.nullable,
+                                        (("origin", "changed"),)),
+                            t.column(j))
+    return {"-0.0 set to 0.0": lambda: price_bits(zero, 0),
+            "NaN with another payload": lambda: price_bits(
+                nan, 0x7FF8000000000001),
+            "one l_discount limb bit": limb,
+            "one byte of one l_comment row": byte,
+            "one l_quantity validity bit": validity,
+            "select in another column order": lambda: t.select(
+                t.column_names[::-1]),
+            "one field's metadata": metadata}
+
+
+def _column_edits(t) -> None:
+    """select, drop_column, rename_columns, append_column and set_column
+    keep the same tensors and give the expected schema."""
+    names = t.column_names
+    col = t.column("l_comment")
+    edits = {
+        "select": (t.select(["l_comment", 0]), ["l_comment", names[0]]),
+        "drop_column": (t.drop_column("l_tax"),
+                        [c for c in names if c != "l_tax"]),
+        "rename_columns": (t.rename_columns([c.upper() for c in names]),
+                           [c.upper() for c in names]),
+        "append_column": (t.append_column("again", col), names + ["again"]),
+        "set_column": (t.set_column(1, t.schema.field("l_comment"), col),
+                       names[:1] + ["l_comment"] + names[2:])}
+    ptrs = _tensors(t)
+    for name, (got, want) in edits.items():
+        if got.column_names != want or not _tensors(got) <= ptrs:
+            raise AssertionError(f"{name}: {got.column_names} against "
+                                 f"{want}, or new tensors")
+        if [repr(f.dtype) for f in got.schema.fields] != \
+                [repr(c.dtype) for c in got.columns]:
+            raise AssertionError(f"{name}: field types")
+
+
+def p30_table_api(table, back, meter):
+    """Table.equals of the read-back lineitem against its source, with a
+    float64 column appended to both (-0.0 and a NaN planted): True, and
+    the same answer as `_same_table`; False for each changed copy; one
+    host sync a call.  The column edits zero-copy.  Then
+    FilterPredicate(q6_predicate).indices: one K1 launch, bit for bit
+    its plain version and keep.nonzero().  Returns the K1 site's
+    (keep, count, launches)."""
+    from arrow_tpu_torch.core.pool import table_memory_size
+    from arrow_tpu_torch.kernels import compact as kc
+    from arrow_tpu_torch.ops.filter import FilterPredicate
+    what = meter.what
+    n = table.num_rows
+    if not (back.equals(table) and table.equals(back)):
+        raise AssertionError(f"{what}: read_back.equals(source) is False, "
+                             "where _same_table found them equal")
+    src, got = _priced(table), _priced(back)
+    _column_edits(got)
+    same, syncs, peak, held = meter.reads(lambda: got.equals(src))
+    if not same or syncs != 1:
+        raise AssertionError(f"{what}: Table.equals {same} with {syncs} "
+                             "host syncs")
+    nbytes = table_memory_size(src) + table_memory_size(got)
+    name = "Table.equals, read back against source"
+    meter.timed(name, lambda: got.equals(src))
+    print(f"{what}: {name}: True, {syncs} host sync; "
+          f"{meter.times[name]:.4f} ms (CUDA events, median of 5), bound "
+          f"{bound_ms(nbytes):.4f} ms ({nbytes:,} bytes over "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); peak {peak:.2f} GiB, "
+          f"{peak - held:.2f} above the {held:.2f} GiB held before",
+          flush=True)
+    per = {}
+    for c in src.column_names:
+        key = f"Column.equals {c}"
+        meter.timed(key, lambda c=c: got.column(c).equals(src.column(c)))
+        per[c] = round(meter.times[key], 4)
+    print(f"{what}: Column.equals by column, ms (CUDA events, median of "
+          f"5): {json.dumps(per)}", flush=True)
+    changes = _changed_copies(got, n // 3)
+    for change, make in changes.items():
+        other = make()
+        if other.equals(src) or src.equals(other):
+            raise AssertionError(f"{what}: equals is True with {change}")
+        del other
+    print(f"{what}: Table.equals False for each changed copy: "
+          f"{', '.join(changes)}", flush=True)
+    del src, got
+
+    pred = FilterPredicate(q6_predicate(back))
+    idx, launches, _ = meter.counted(
+        "FilterPredicate(q6_predicate).indices", "compact",
+        lambda: pred.indices, exactly=1)
+    keep, count = pred.keep, pred.count
+    (plain,), _ = kc.compact_plain(keep, (), count, torch.int32)
+    library = keep.nonzero().squeeze(1).to(torch.int32)
+    if idx.values.dtype != torch.int32 or not (
+            torch.equal(idx.values, plain) and torch.equal(plain, library)):
+        raise AssertionError(f"{what}: FilterPredicate.indices differs from "
+                             "compact_plain or keep.nonzero()")
+    print(f"{what}: FilterPredicate(q6_predicate).indices: {count:,} of "
+          f"{n:,} rows ({count / n:.2%}), int32, bit for bit compact_plain "
+          f"and keep.nonzero(); launches {launches}", flush=True)
+    return keep, count, launches
+
+
 def p30_calls(table, g, dev, meter, tmp, rows: int = P30_ROW_GROUP,
               cpu_groups: int = P30_CPU_GROUPS, ipc_groups=P30_IPC_GROUPS,
               piece: int = P30_PIECE):
@@ -4074,6 +4265,13 @@ def p30_calls(table, g, dev, meter, tmp, rows: int = P30_ROW_GROUP,
                        != (ix == torch.int32) for lim, tot, ix in seen):
         raise AssertionError(f"{what}: range_gather's index type")
     del kept
+
+    # 3b. the Table API over the read-back table: equals against the
+    # source and against changed copies, the column edits, and
+    # FilterPredicate.indices (K1)
+    sites["FilterPredicate.indices"] = step(
+        "the Table API: equals, column edits, FilterPredicate.indices",
+        lambda: p30_table_api(table, back, meter))
 
     # 4. Q6
     pages = (pn.PAGES_DECODED[0], pn.PAGES_SKIPPED[0])
@@ -4279,6 +4477,14 @@ def run_phase30(dev, profile: bool):
             kwargs.get("positions"))
         err = check_site(site, same_compaction, f"K1 at {site.call_site}")
         entries.append(_entry(site, len(calls), err))
+    keep, count, launches = sites["FilterPredicate.indices"]
+    site = _compact_site(
+        f"phase 30 FilterPredicate(q6_predicate).indices of the read-back "
+        f"lineitem, {keep.shape[0]:,} rows, {count / keep.shape[0]:.2%} "
+        f"kept, int32 positions alone", keep, (), count,
+        lambda: keep.nonzero(), torch.int32)
+    err = check_site(site, same_compaction, f"K1 at {site.call_site}")
+    entries.append(_entry(site, launches["compact"], err))
     calls, launches = sites["Q1 group_by"]
     site = _k2_site(f"phase 30 Q1 group_by(l_returnflag, l_linestatus) "
                     f"dictionary plan, {len(calls[0][0][0]):,} rows x "
@@ -5512,15 +5718,6 @@ def p34_config5(mesh, dev, meter) -> dict:
     return entry
 
 
-def _pick(t, names, rename=None):
-    """The named columns of a table, `rename` mapping old names to new."""
-    from arrow_tpu_torch import dtypes as dt
-    from arrow_tpu_torch.core.table import Table
-    rename = rename or {}
-    return Table([t.column(c) for c in names], dt.Schema(tuple(
-        t.schema.field(c).with_name(rename.get(c, c)) for c in names)))
-
-
 def _same_tables(got, want, what: str) -> None:
     for name in want.column_names:
         g, w = got.column(name), want.column(name)
@@ -5544,7 +5741,7 @@ def p34_table_api(mesh, dev, meter) -> list:
     entries = []
 
     keys = ["l_returnflag", "l_linestatus"]
-    lg = _pick(li, keys + ["l_quantity", "l_extendedprice", "l_orderkey"])
+    lg = li.select(keys + ["l_quantity", "l_extendedprice", "l_orderkey"])
     aggs = [AggSpec("l_quantity", "sum"), AggSpec("l_quantity", "count"),
             AggSpec("l_extendedprice", "min"),
             AggSpec("l_extendedprice", "max"), AggSpec("l_orderkey", "sum")]
@@ -5563,7 +5760,7 @@ def p34_table_api(mesh, dev, meter) -> list:
                               launches["compact"]))
     del lg, got, want, calls
 
-    ls = _pick(li, ["l_shipdate", "l_orderkey", "l_extendedprice"])
+    ls = li.select(["l_shipdate", "l_orderkey", "l_extendedprice"])
     desc, asc = SortOptions(descending=True), SortOptions()
     want = sort_table(ls, [("l_shipdate", desc), ("l_orderkey", asc)])
     got, launches, (calls,) = meter.counted(
@@ -5584,9 +5781,9 @@ def p34_table_api(mesh, dev, meter) -> list:
                               launches["compact"]))
     del calls
 
-    lj = _pick(li, ["l_orderkey", "l_linenumber", "l_quantity"])
-    oj = _pick(od, ["o_orderkey", "o_totalprice", "o_orderdate"],
-               {"o_orderkey": "l_orderkey"})
+    lj = li.select(["l_orderkey", "l_linenumber", "l_quantity"])
+    oj = od.select(["o_orderkey", "o_totalprice", "o_orderdate"]) \
+        .rename_columns(["l_orderkey", "o_totalprice", "o_orderdate"])
     del li, od
     want = join(lj, oj, ["l_orderkey"])
     got, launches, (calls,) = meter.counted(

@@ -3,6 +3,9 @@ Parquet, IPC and the C Data Interface) at 10,000 rows in row groups of
 2,048: its generator with all 16 columns, then every call and check of
 steps 1-9 (`p30_calls`): the Parquet write and pyarrow's read of it,
 pyarrow's write from export_stream and the port's read of that file,
+the Table API over the read-back table (equals against its source and
+seven changed copies, the zero-copy column edits, FilterPredicate's
+indices),
 the Q6 and Q1 scans with their closed forms and K1 call sites, Q1's
 group_by, the IPC file and stream (fed in small pieces), import_stream
 of a pyarrow reader, the CPU route's list and the scan with and without
@@ -28,7 +31,16 @@ class PlainMeter:
     what = "phase 30 rehearsal"
 
     def __init__(self, chip):
-        self.chip, self.seconds = chip, {}
+        self.chip, self.seconds, self.times = chip, {}, {}
+
+    def reads(self, fn):
+        """The CPU makes no host syncs to count: the card's count is
+        checked on the card (and by test_torch_table_api.py there)."""
+        return fn(), 1, 0.0, 0.0
+
+    def timed(self, name, fn):
+        out, self.times[name] = fn(), 0.0
+        return out
 
     def host(self, name, fn):
         t0 = time.perf_counter()
@@ -93,6 +105,7 @@ def test_phase30_rehearsal(tmp_path):
     assert set(meter.seconds) >= {
         "write_parquet", "pyarrow reads the port's file",
         "pyarrow writes from export_stream", "read_parquet of pyarrow's file",
+        "the Table API: equals, column edits, FilterPredicate.indices",
         "ipc.write_file (lz4)", "ipc.read_file", "ipc.write_stream",
         "StreamDecoder fed 4,096-byte pieces",
         "import_stream of pyarrow's reader", "Q6 scan", "Q1 scan and group_by",
@@ -107,6 +120,9 @@ def test_phase30_rehearsal(tmp_path):
         assert len(calls) == groups, name
         (args, _), = calls[:1]
         assert args[0].dtype == torch.bool and args[0].shape[0] == GROUP
+    keep, count, launches = sites["FilterPredicate.indices"]
+    assert keep.shape[0] == ROWS and count == int(keep.sum()) > 0
+    assert launches == {"compact": 0, "grouped_aggregate": 0}
     calls, _ = sites["Q1 group_by"]
     assert len(calls) == 1
     codes, ncodes = calls[0][0][:2]
