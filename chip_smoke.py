@@ -167,8 +167,10 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      timestamp[us] against its closed form, base64; RowConverter over
      config 2's 10M rows (convert_rows gives back every column,
      Rows.argsort equals lexsort_to_indices).  Every call is held to the
-     same call on CPU copies; K1 and K2 at the new sites against their
-     plain versions.
+     same call on CPU copies over the first 1,000,000 rows of its inputs
+     (100,000 for the host-ranked keys and the text casts; cut: the CPU
+     route over 60M rows took two minutes), on the card and on the CPU
+     alike; K1 and K2 at the new sites against their plain versions.
  29. TPC-H SF10's string predicates: part (2M rows), supplier (100K),
      customer (1.5M) and orders (15M) string columns made on the host
      with numpy by the spec's rules (4.2.3; text cut from a pool of the
@@ -292,6 +294,22 @@ Drives the port's main path at BASELINE sizes and checks every kernel:
      starts of local_group_aggregate, at dist_join_skew's
      _compact_front and at the three table calls' trims against its
      plain version.
+ 35. the port's scaling harness (tools_torch/bench_scaling.py; the
+     reference's tools/bench_scaling.py): its five operators
+     (dist_group_by, dist_sort, dist_join_unique, dist_join_skew, a
+     group-by then a sort) with the reference's capacities over a
+     LocalMesh of 1, 2, 4 and 8 shards on the card, 2^18 rows a shard
+     (the reference's default) drawn as the reference draws them, one
+     warm and one timed run each; every operator's answer at N shards
+     (the valid groups' keys and sums, the valid keys in order, the
+     matched values) equal to its answer over the same rows on one
+     shard, no overflow flag raised; K1 must launch; the harness's JSON
+     (rows/s, efficiency, throughput retention, peak memory, overflow
+     by shard count); then K1 at the 8-shard group-by's run starts
+     against its plain version.  With --profile, one 8-shard
+     dist_group_by at 2^18 and at 2^21 rows a shard split into the
+     device time of its exchange and of its local sort and aggregate,
+     beside the call's wall time and the card's idle share.
 
 `--profile` also traces the dictionary and config-4 group-bys, the
 config-5 joins on both plans, one streamed chunk, config 2 (eager and
@@ -325,7 +343,8 @@ its kernels launched on the server's gRPC worker threads); in step 34
 the call over the mesh that holds the site (config 4's 10M-group
 dist_group_by: one run-start launch a shard; dist_join_skew: one a
 shard; each table call: its trim, and the group-by's run starts), from
-all eight shards' threads.
+all eight shards' threads; in step 35 the 8-shard group_by's warm and
+timed runs, eight shards each.
 
 Any failure raises and exits non-zero.  The line before the last is a
 JSON object of per-kernel results; the last line is the JSON result
@@ -2560,6 +2579,8 @@ def run_phase27(dev, profile: bool) -> list:
 
 P28_ROWS = 59_986_052              # TPC-H SF10 lineitem
 P28_HOST_ROWS = 1_000_000          # host-ranked keys and text casts (cut)
+P28_CPU_ROWS = 1_000_000           # the CPU route: each call's first rows
+P28_CPU_HOST_ROWS = 100_000        # ... for the host-ranked and text calls
 P28_CURRENT = "1995-06-17"         # TPC-H's CURRENTDATE (spec 4.2.3)
 
 
@@ -2763,11 +2784,27 @@ def p28_host_columns(table, g, dev):
             "interval": mdn}
 
 
+def _head(x, rows: int):
+    """A column's or a table's first `rows` rows (a view); any other
+    argument as it is."""
+    from arrow_tpu_torch.core.column import Column
+    from arrow_tpu_torch.core.table import Table
+    if isinstance(x, Table):
+        return x.slice(0, min(rows, x.num_rows))
+    if isinstance(x, Column):
+        return x.slice(0, min(rows, len(x)))
+    return x
+
+
 def run_phase28(dev, profile: bool) -> list:
     """Phase 28: TPC-H SF10 lineitem's decimal keys through group_by,
     sort_table and rank, a run-end key, struct and list keys, the
     remaining casts and RowConverter.  Returns the kernel entries and the
-    calls `check_against_cpu` holds to the CPU route."""
+    calls `check_against_cpu` holds to the CPU route: each call over the
+    first P28_CPU_ROWS rows of its inputs (P28_CPU_HOST_ROWS for the
+    host-ranked keys and the text casts), on the card and on the CPU
+    alike.  The full-size calls on the card are held to independent
+    computations inside the phase."""
     from arrow_tpu_torch import dtypes as dt
     from arrow_tpu_torch.core.column import (PrimitiveColumn, StringColumn,
                                              StructColumn)
@@ -2788,7 +2825,7 @@ def run_phase28(dev, profile: bool) -> list:
     limbs = nbytes(*[c.limbs for c in table.columns if hasattr(c, "limbs")])
     print(f"{what}: {g['okeys'].shape[0]:,} orders, {limbs / 1e9:.2f} GB of "
           f"decimal limbs, peak {peak_gib():.2f} GiB", flush=True)
-    times, entries, cpu_calls = {}, [], []
+    times, entries, cpu_calls, host_calls = {}, [], [], []
 
     def timed(name, fn):
         times[name] = time_ms(fn)
@@ -2929,8 +2966,8 @@ def run_phase28(dev, profile: bool) -> list:
         raise AssertionError(f"{what}: group_by struct differs from the "
                              f"bincount of flag * 2 + status")
     del out
-    cpu_calls.append((f"group_by struct (flag, status) ({k:,} rows)",
-                      group_by, stab, ["k"], ragg))
+    host_calls.append((f"group_by struct (flag, status) ({k:,} rows)",
+                       group_by, stab, ["k"], ragg))
     (keep, arrays), kwargs = k1_calls[0][0][:2], k1_calls[0][1]
     site = _compact_site(f"phase 28 sort-plan run starts, struct (flag, "
                          f"status) key, {k:,} rows", keep, tuple(arrays),
@@ -2950,8 +2987,8 @@ def run_phase28(dev, profile: bool) -> list:
         raise AssertionError(f"{what}: sort_table by the struct key out of "
                              f"order")
     del got, c, key
-    cpu_calls.append((f"sort_table struct key ({k:,} rows)", sort_table,
-                      stab, sby))
+    host_calls.append((f"sort_table struct key ({k:,} rows)", sort_table,
+                       stab, sby))
     lst = _p28_list_key(k, dev)
     rows = lst.to_pylist()
     order = once(f"sort_to_indices List<Int64> ({k:,} rows)",
@@ -2961,8 +2998,8 @@ def run_phase28(dev, profile: bool) -> list:
         raise AssertionError(f"{what}: sort_to_indices of the list key "
                              f"differs from Python's stable sort")
     del rows, order
-    cpu_calls.append((f"sort_to_indices List<Int64> ({k:,} rows)",
-                      sort_to_indices, lst))
+    host_calls.append((f"sort_to_indices List<Int64> ({k:,} rows)",
+                       sort_to_indices, lst))
     print(f"{what}: struct key group_by (bincount) and sort_table, list key "
           f"sort_to_indices (Python's stable sort) at {k:,} rows", flush=True)
 
@@ -3006,10 +3043,10 @@ def run_phase28(dev, profile: bool) -> list:
         back = once(f"cast utf8 -> {name} ({k:,} rows)",
                     lambda: pc.cast(text, col.dtype))
         _same_values(back, col, f"{what}: {name} -> utf8 -> {name}")
-        cpu_calls.append((f"cast {name} -> utf8 ({k:,} rows)", pc.cast, col,
-                          dt.utf8))
-        cpu_calls.append((f"cast utf8 -> {name} ({k:,} rows)", pc.cast, text,
-                          col.dtype))
+        host_calls.append((f"cast {name} -> utf8 ({k:,} rows)", pc.cast,
+                           col, dt.utf8))
+        host_calls.append((f"cast utf8 -> {name} ({k:,} rows)", pc.cast,
+                           text, col.dtype))
     second = _umod(splitmix(k, 15 * k, dev), 86_400)
     days = hc["date"].values.to(torch.int64)
     stamps = StringColumn.from_pylist(
@@ -3021,14 +3058,16 @@ def run_phase28(dev, profile: bool) -> list:
     if not torch.equal(ts.values, (days * 86_400 + second) * 1_000_000):
         raise AssertionError(f"{what}: utf8 -> timestamp[us] differs from "
                              f"the closed form")
-    cpu_calls.append((f"cast utf8 -> timestamp[us] ({k:,} rows)", pc.cast,
-                      stamps, dt.timestamp("us")))
+    host_calls.append((f"cast utf8 -> timestamp[us] ({k:,} rows)", pc.cast,
+                       stamps, dt.timestamp("us")))
     raw = pc.cast(stamps, dt.binary)
     enc = once(f"base64_encode ({k:,} rows)", lambda: pc.base64_encode(raw))
     _same(once(f"base64_decode ({k:,} rows)", lambda: pc.base64_decode(enc)),
           raw, f"{what}: base64 round trip")
-    cpu_calls.append((f"base64_encode ({k:,} rows)", pc.base64_encode, raw))
-    cpu_calls.append((f"base64_decode ({k:,} rows)", pc.base64_decode, enc))
+    host_calls.append((f"base64_encode ({k:,} rows)", pc.base64_encode,
+                       raw))
+    host_calls.append((f"base64_decode ({k:,} rows)", pc.base64_decode,
+                       enc))
     print(f"{what}: date, int64, float64 (bits) and interval text round "
           f"trips, utf8 -> timestamp[us] (closed form) and base64 at {k:,} "
           f"rows", flush=True)
@@ -3071,8 +3110,12 @@ def run_phase28(dev, profile: bool) -> list:
     print(f"phase 28 peak device memory {peak_gib():.2f} GiB; times (CUDA "
           f"events: median of 5, host-bound calls one run; ms): "
           + json.dumps(times), flush=True)
-    return entries, [(f"{what}: {name}", fn, args)
-                     for name, fn, *args in cpu_calls]
+    return entries, [
+        (f"{what}: {name}, first {rows:,} rows", fn,
+         [_head(a, rows) for a in args])
+        for calls, rows in ((cpu_calls, P28_CPU_ROWS),
+                            (host_calls, P28_CPU_HOST_ROWS))
+        for name, fn, *args in calls]
 
 
 # ---- phase 29: TPC-H SF10's string predicates ------------------------------
@@ -5504,14 +5547,15 @@ def _same_tensor(got, want, what: str) -> None:
                              f"{tuple(want.shape)})")
 
 
-def _site_from(calls, call_site: str, launches: int) -> dict:
+def _site_from(calls, call_site: str, launches: int,
+               phase: str = "phase 34") -> dict:
     """K1 at a parallel call site, from the recorded call (of one shard's
     thread) that kept the most rows, against its plain version: the
     kernels-line entry."""
     (args, kwargs) = max(calls, key=lambda c: int(c[0][0].sum()))
     keep, arrays = args[0], tuple(args[1])
     site = _compact_site(
-        f"phase 34 {call_site}, {keep.shape[0]:,} rows, "
+        f"{phase} {call_site}, {keep.shape[0]:,} rows, "
         f"{float(keep.float().mean()):.2%} kept", keep, arrays,
         kwargs.get("out_cap"),
         lambda: (tuple(a[keep] for a in arrays), keep.nonzero()),
@@ -5885,12 +5929,90 @@ def run_phase34(dev, profile: bool) -> list:
     return entries
 
 
+# ---- phase 35: the scaling harness on the card -----------------------------
+
+P35_ROWS = 1 << 18                 # rows a shard: the reference's default
+P35_LARGE_ROWS = 1 << 21           # the harness's largest size on the card
+
+
+def run_phase35(dev, profile: bool) -> list:
+    """Phase 35: the port's scaling harness (tools_torch/bench_scaling.py)
+    over a LocalMesh of 1, 2, 4 and 8 shards on the card at P35_ROWS rows
+    a shard, one timed run each; every operator's answer at N shards
+    equal to its answer over the same rows on one shard, no overflow;
+    the harness's JSON printed.  Returns the kernels entry of K1 at the
+    8-shard group_by's run starts.  With `profile`, one 8-shard
+    dist_group_by at P35_ROWS and at P35_LARGE_ROWS split into its
+    exchange and its local work."""
+    import importlib
+    from arrow_tpu_torch import parallel as par
+    from arrow_tpu_torch.kernels import compact as kc
+    bs = importlib.import_module("tools_torch.bench_scaling")
+    what = "phase 35"
+    last = bs.COUNTS[-1]
+    site = {}
+
+    @contextlib.contextmanager
+    def observe(op, nd):
+        if (op, nd) != ("group_by", last):
+            yield
+            return
+        before = kc.compact.launches
+        with watch("compact", "parallel.dist") as calls:
+            yield
+        torch.cuda.synchronize()
+        site["launches"], site["calls"] = kc.compact.launches - before, calls
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    results = bs.measure_local(dev, P35_ROWS, 1, observe)
+    seconds = time.perf_counter() - t0
+    launches = _read_counts(f"{what} the scaling harness", "compact")
+    one = par.make_mesh(1, dev)
+    for nd, x in bs.draws(P35_ROWS):
+        args = bs.on(dev, x)
+        for op in bs.OPS:
+            rec = results[op][nd]
+            if rec["overflow"]:
+                raise AssertionError(f"{what} {op} at {nd} shards: capacity "
+                                     f"overflow")
+            if nd == 1:
+                continue
+            out = bs.run_local(op, one, args)
+            if bool(out[1]) or not bs.same_answer(rec["answer"],
+                                                  bs.answer(op, out)):
+                raise AssertionError(f"{what} {op} at {nd} shards differs "
+                                     f"from its answer at 1 shard")
+            del out
+        del args
+    print(f"{what}: the scaling harness at {P35_ROWS:,} rows a shard, "
+          f"{len(bs.OPS)} operators at {bs.COUNTS} shards, every answer "
+          f"equal to the 1-shard answer over the same rows, no overflow; "
+          f"{seconds:.3f} s (host clock); K1 launches {launches['compact']}",
+          flush=True)
+    print(json.dumps(bs.report(results, P35_ROWS, dev.type, "local",
+                               card())), flush=True)
+    entry = _site_from(site["calls"], f"{last}-shard group_by "
+                       f"local_group_aggregate run starts (one of {last} "
+                       f"shards)", site["launches"], phase=what)
+    del site
+    if profile:
+        for per in (P35_ROWS, P35_LARGE_ROWS):
+            print(f"profile {what} dist_group_by, {last} shards x {per:,} "
+                  f"rows: " + json.dumps(bs.profile_split(dev, per)),
+                  flush=True)
+    torch.cuda.empty_cache()
+    return [entry]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also trace the group-bys, the joins, configs 2 "
-                         "and 3 and phases 24-29 with torch.profiler "
-                         "(phase 34 is host-clock timed only)")
+                         "and 3 and phases 24-29 with torch.profiler, and "
+                         "split phase 35's 8-shard dist_group_by into its "
+                         "exchange and its local work (phase 34 is "
+                         "host-clock timed only)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -6008,7 +6130,8 @@ def main(argv=None) -> int:
     e32 = lap("phase 32", lambda: run_phase32(dev, args.profile))
     e33 = lap("phase 33", lambda: run_phase33(dev, args.profile))
     e34 = lap("phase 34", lambda: run_phase34(dev, args.profile))
-    entries += e26 + e27 + e28 + e29 + e30 + e32 + e33 + e34
+    e35 = lap("phase 35", lambda: run_phase35(dev, args.profile))
+    entries += e26 + e27 + e28 + e29 + e30 + e32 + e33 + e34 + e35
     print("seconds by step (host clock): " + json.dumps(
         {k: round(v, 1) for k, v in laps.items()}), flush=True)
 

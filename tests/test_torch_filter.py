@@ -234,6 +234,30 @@ def test_kernel_matches_plain_on_cuda(cuda_device, n):
         assert torch.equal(g_[:count], w_[:count])
 
 
+def test_kernel_repeated_launches_agree_on_cuda(cuda_device):
+    """K1 orders its tiles through status words and a ticket
+    (csrc/compact.cu), where an ordering fault would show now and then,
+    not at every launch.  compute-sanitizer refused the H100 these tests
+    run on ("Device not supported"; PERF.md), so the same inputs go
+    through the kernel 100 times at sizes of one, 16 and 200 tiles, each
+    launch equal to the plain version."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(16)
+    for n, p in ((65_537, 0.5), (1_000_003, 0.02), (13_107_201, 0.5)):
+        keep = torch.rand(n, generator=g, device=cuda_device) < p
+        a = torch.randint(-2 ** 62, 2 ** 62, (n,), generator=g,
+                          device=cuda_device)
+        (want_a, want_pos), want_n = kc.compact_plain(keep, [a], n,
+                                                      torch.int32)
+        count = int(want_n)
+        for _ in range(100):
+            (got_a, got_pos), got_n = kc.compact(keep, [a],
+                                                 positions=torch.int32)
+            assert int(got_n) == count
+            assert torch.equal(got_a[:count], want_a[:count])
+            assert torch.equal(got_pos[:count], want_pos[:count])
+
+
 @pytest.mark.parametrize("positions", [torch.int32, torch.int64])
 @pytest.mark.parametrize("p", [0.0, 0.02, 0.5, 1.0])
 def test_positions_match_reference_over_an_iota(rng, positions, p):

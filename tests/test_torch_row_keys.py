@@ -618,6 +618,47 @@ def test_phase28_rehearsal():
         _indices(rs.sort_to_indices(lst))
 
 
+def test_phase28_cpu_route_takes_the_first_rows(monkeypatch):
+    """chip_smoke.py's phase 28 at 20,000 rows (2,000 for the host-ranked
+    keys and text casts) with the CUDA calls stubbed and each plain
+    kernel call counted as a launch: its full-size calls pass their
+    independent checks, and its CPU route holds each call over the first
+    5,000 rows of its inputs (500 for the host calls) to the same call
+    on CPU copies."""
+    from arrow_tpu_torch.core.column import Column
+    from arrow_tpu_torch.core.table import Table
+    from test_torch_tpch_strings import _chip_smoke
+    chip = _chip_smoke()
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(chip, "time_ms", lambda fn, reps=5: (fn(), 0.0)[1])
+    monkeypatch.setattr(chip, "once_ms", lambda fn: (fn(), 0.0))
+    monkeypatch.setattr(chip, "kernel_ms", lambda *a, **k: None)
+    for name, value in (("P28_ROWS", 20_000), ("P28_HOST_ROWS", 2_000),
+                        ("CONFIG2_ROWS", 20_000), ("P28_CPU_ROWS", 5_000),
+                        ("P28_CPU_HOST_ROWS", 500)):
+        monkeypatch.setattr(chip, name, value)
+    for mod, plain, wrapper in ((kc, "compact_plain", kc.compact),
+                                (kg, "grouped_aggregate_plain",
+                                 kg.grouped_aggregate)):
+        def counted(*args, real=getattr(mod, plain), wrapper=wrapper,
+                    **kwargs):
+            wrapper.launches += 1
+            return real(*args, **kwargs)
+        monkeypatch.setattr(mod, plain, counted)
+    entries, checks = chip.run_phase28(torch.device("cpu"), False)
+    assert len(entries) == 5 and len(checks) == 25
+    for what, _, args in checks:
+        rows = 500 if "(2,000 rows)" in what else 5_000
+        assert what.endswith(f"first {rows:,} rows"), what
+        for a in args:
+            n = a.num_rows if isinstance(a, Table) else \
+                len(a) if isinstance(a, Column) else None
+            assert n in (None, rows), what
+    chip.check_against_cpu(checks)
+
+
 def pdt_table(cols):
     from arrow_tpu_torch.core.table import Table
     return Table(list(cols.values()), pdt.Schema(tuple(

@@ -262,15 +262,16 @@ def test_import_leaves_jax_out():
 
 
 def test_port_sources_import_no_reference():
-    """No jax and no arrow_tpu anywhere, in the package, its examples or
-    chip_smoke.py; pyarrow only inside the functions that use it
-    (interop), never at a module's top level."""
+    """No jax and no arrow_tpu anywhere, in the package, its examples,
+    its tools or chip_smoke.py; pyarrow only inside the functions that
+    use it (interop), never at a module's top level."""
     pat = re.compile(r"^\s*(import|from) (jax|arrow_tpu\b)", re.M)
     top = re.compile(r"^(import|from) pyarrow", re.M)
     files = sorted((REPO / "arrow_tpu_torch").rglob("*.py"))
     examples = sorted((REPO / "examples_torch").glob("*.py"))
-    assert files and len(examples) == 13
-    for f in files + examples + [REPO / "chip_smoke.py"]:
+    tools = sorted((REPO / "tools_torch").glob("*.py"))
+    assert files and len(examples) == 13 and tools
+    for f in files + examples + tools + [REPO / "chip_smoke.py"]:
         assert not pat.search(f.read_text()), f
         assert not top.search(f.read_text()), f
 

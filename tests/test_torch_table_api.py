@@ -639,6 +639,45 @@ def test_equals_strings_piece_by_piece(monkeypatch, piece, kind, seed):
         agree(ref.slice(2, n - 4), held.slice(2, n - 4), True)
 
 
+@pytest.mark.parametrize("piece", [5, peq.PIECE])
+@pytest.mark.parametrize("kind", list(STRINGS) + [
+    "large_list_utf8", "dictionary", "run_end_utf8"])
+def test_equals_int64_index_route(monkeypatch, kind, piece):
+    """Past 2^31 - 1 bytes the byte compare indexes with int64
+    (`_index_dtype`); forced here at 40 rows, the string, list,
+    dictionary and run-end compares, in one piece and in pieces of 5
+    bytes, answer as the reference does."""
+    sizes = []
+    monkeypatch.setattr(peq, "_index_dtype",
+                        lambda *s: sizes.append(s) or torch.int64)
+    monkeypatch.setattr(peq, "PIECE", piece)
+    rng = np.random.default_rng(31)
+    n = 40
+    arr = pa_array(kind, rng, n)
+    ra = at.column(arr)
+    agree(ra, at.column(arr), True)
+    agree(ra, ref_col(kind, np.random.default_rng(32), n))
+    agree(ra.slice(3, n - 5), at.column(arr.slice(3, n - 5)), True)
+    if kind in STRINGS or kind == "large_list_utf8":
+        rows = arr.to_pylist()
+        changed = list(rows)
+        changed[7] = rows[8]
+        agree(ra, at.column(pa.array(changed, arr.type)))
+    if kind == "utf8":
+        ref, held, flipped, k_valid = _held_strings(rng, n)
+        agree(ref, held, True)
+        agree(held, flipped, not k_valid and None)
+    if kind == "dictionary":
+        ra, rb, rc, moved_valid = _dictionary_apart(rng, n)
+        agree(ra, rb, True)
+        agree(ra, rc, not moved_valid and None)
+    if kind == "run_end_utf8":
+        ra, rb, rc = _run_end_split(rng, n)
+        agree(ra, rb, True)
+        agree(ra, rc, False)
+    assert sizes
+
+
 @CASES
 @given(seed=st.integers(0, 2 ** 32 - 1), n=st.integers(1, 40))
 def test_equals_decimal_limb(seed, n):
