@@ -7,9 +7,10 @@ tensor on the CPU takes a kernel's plain PyTorch version, a CUDA tensor
 takes the hand-written kernel.  There is no global device detection and
 no switch that sends CUDA tensors to the plain version.
 
-`fused_region`, `in_fused_region` and `sync_guard` carry `fuse`'s rules
-(fuse.py) down to the ops: inside a fused pipeline checked ops do not
-sync, and an op that must read a device value on the host raises.
+`fused_region` and `in_fused_region` carry `fuse`'s rules (fuse.py)
+down to the ops: inside a fused pipeline checked ops do not sync, and an
+op that must read a device value on the host raises (the guarded reads
+of utils/trace.py::to_host).
 """
 
 from __future__ import annotations
@@ -63,16 +64,5 @@ def capturing() -> bool:
 def in_fused_region() -> bool:
     """Inside `fuse`'s warm-up run or its capture: checked ops skip
     their flag's sync, and ops that read device values on the host
-    raise (`sync_guard`)."""
+    raise (`to_host(..., guard=True)`)."""
     return getattr(_FUSED, "depth", 0) > 0 or capturing()
-
-
-def sync_guard(what: str) -> None:
-    """Raise a clear error where `what` is about to read a device value
-    on the host inside a fused pipeline: the read would fail in the
-    capture (the reference's jit refuses the same reads)."""
-    if in_fused_region():
-        raise RuntimeError(
-            f"arrow_tpu_torch.fuse: {what} reads a device value on the "
-            "host, which a captured pipeline cannot do; call it eagerly "
-            "between fused stages")

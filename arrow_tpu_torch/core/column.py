@@ -39,6 +39,7 @@ from torch.utils import _pytree as pytree
 from .. import dtypes as dt
 from ..config import DeviceLike, resolve_device
 from ..errors import ArrowInvalid, ArrowNotImplementedError, ArrowTypeError
+from ..utils.trace import to_host
 from . import validity as vd
 
 __all__ = ["Column", "PrimitiveColumn", "StringColumn", "DictionaryColumn",
@@ -96,7 +97,8 @@ class Column:
         return column_to_pyarrow(self)
 
     def _mask_host(self) -> Optional[np.ndarray]:
-        return None if self.validity is None else self.validity.cpu().numpy()
+        return None if self.validity is None else \
+            to_host("column.validity", self.validity).numpy()
 
     def __repr__(self):
         return (f"{type(self).__name__}<{self.dtype!r}>[{len(self)}] "
@@ -175,7 +177,8 @@ class PrimitiveColumn(Column):
         """Host copy of the values in the logical numpy dtype.  Null slots
         hold zeros whatever `zero_nulls` says: they are zeroed at
         construction (the reference ignores the flag too)."""
-        return self.values.cpu().numpy().view(self.dtype.to_numpy())
+        return to_host("column.values", self.values).numpy().view(
+            self.dtype.to_numpy())
 
     def to_pylist(self) -> list:
         if self.dtype.is_temporal and self.dtype.name != "interval":
@@ -255,7 +258,7 @@ class StringColumn(Column):
         bytes they cover (arrow_tpu/core/column.py:215-223): one host
         read of the two byte bounds."""
         offs = self.offsets[offset:offset + length + 1]
-        start, end = offs[[0, -1]].tolist()
+        start, end = to_host("column.slice", offs[[0, -1]]).tolist()
         v = None if self.validity is None \
             else self.validity[offset:offset + length]
         return StringColumn(offs - start, self.data[start:end], self.dtype,
@@ -432,7 +435,7 @@ class ListColumn(Column):
         """Rows [offset, offset + length): rebased offsets and the child
         rows they cover (one host read of the two bounds)."""
         offs = self.offsets[offset:offset + length + 1]
-        start, end = offs[[0, -1]].tolist()
+        start, end = to_host("column.slice", offs[[0, -1]]).tolist()
         v = None if self.validity is None \
             else self.validity[offset:offset + length]
         return ListColumn(offs - start, self.child.slice(start, end - start),

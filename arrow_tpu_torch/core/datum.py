@@ -21,6 +21,7 @@ from torch.utils import _pytree as pytree
 
 from .. import dtypes as dt
 from ..errors import ArrowTypeError
+from ..utils.trace import to_host
 from . import validity as vd
 from .column import Column, PrimitiveColumn
 
@@ -55,7 +56,8 @@ class Scalar:
             return None
         if _host_valued(self.dtype):
             return self.value
-        return self.value.cpu().numpy().view(self.dtype.to_numpy()).item()
+        return to_host("scalar.as_py", self.value).numpy().view(
+            self.dtype.to_numpy()).item()
 
     def __repr__(self):
         return f"Scalar<{self.dtype!r}>({self.as_py()})"

@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from ..utils.trace import to_host
+
 Mask = Optional[torch.Tensor]  # dense bool tensor or None (= all valid)
 
 
@@ -36,13 +38,13 @@ def null_count(mask: Mask, length: int) -> int:
     """Number of null slots (syncs one scalar)."""
     if mask is None:
         return 0
-    return length - int(mask.sum())
+    return length - int(to_host("validity.null_count", mask.sum()))
 
 
 def is_all_valid_host(mask: Mask) -> bool:
     """Whether every slot is valid: reads the mask on the host (a sync);
     for eager callers only (arrow_tpu/core/validity.py:52)."""
-    return mask is None or bool(mask.all())
+    return mask is None or bool(to_host("validity.all", mask.all()))
 
 
 def valid_count(mask: Mask, length: int):

@@ -28,8 +28,9 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..config import on_cuda, sync_guard
+from ..config import on_cuda
 from ..errors import ArrowInvalid
+from ..utils.trace import span, to_host
 from . import native
 
 __all__ = ["compact", "compact_plain"]
@@ -125,15 +126,16 @@ def compact(keep: torch.Tensor, arrays: Sequence[torch.Tensor],
     cap = keep.shape[0] if out_cap is None else int(out_cap)
     if cap < 0:
         raise ArrowInvalid(f"compact: negative out_cap {cap}")
-    if not on_cuda(keep):
-        return compact_plain(keep, arrays, cap, positions)
-    if out_cap is not None:
-        sync_guard("compact(out_cap=...)")
-    outs, count = _launch(keep, arrays, cap, positions)
-    if out_cap is not None and int(count) > cap:
-        raise ArrowInvalid(f"compact: {int(count)} kept rows exceed "
-                           f"out_cap {cap}")
-    return outs, count
+    with span("kernel.k1", rows=keep.shape[0]):
+        if not on_cuda(keep):
+            return compact_plain(keep, arrays, cap, positions)
+        outs, count = _launch(keep, arrays, cap, positions)
+        if out_cap is not None:
+            kept = int(to_host("compact(out_cap=...)", count, guard=True))
+            if kept > cap:
+                raise ArrowInvalid(f"compact: {kept} kept rows exceed "
+                                   f"out_cap {cap}")
+        return outs, count
 
 
 compact.launches = 0     # kernel launches; plain calls add nothing

@@ -36,6 +36,7 @@ import torch
 from .. import dtypes as dt
 from ..config import on_cuda
 from ..errors import ArrowInvalid
+from ..utils.trace import span
 from . import native
 
 __all__ = ["G_MAX", "SumCol", "MinMaxCol", "grouped_aggregate",
@@ -352,8 +353,9 @@ def grouped_aggregate(codes: torch.Tensor, num_groups: int,
     _check_args(codes, num_groups, sum_cols, mm_cols, base, codes_valid,
                 codes_dtype)
     run = _launch if on_cuda(codes) else grouped_aggregate_plain
-    sums, counts, keys = run(codes, num_groups, sum_cols, mm_cols, base,
-                             codes_valid, codes_dtype)
+    with span("kernel.k2", rows=codes.shape[0]):
+        sums, counts, keys = run(codes, num_groups, sum_cols, mm_cols, base,
+                                 codes_valid, codes_dtype)
     if not decode:
         return sums, counts, keys
     minmaxes = []

@@ -32,6 +32,7 @@ from ..core import validity as vd
 from ..core.column import Column, DictionaryColumn, PrimitiveColumn
 from ..core.datum import Scalar
 from ..errors import ArithmeticOverflow, ArrowTypeError
+from ..utils.trace import to_host
 
 __all__ = ["sum_", "sum_checked", "min_", "max_", "min_max", "count",
            "count_nulls", "bool_and", "bool_or", "bit_and", "bit_or",
@@ -61,7 +62,7 @@ def _exact_sum(vals: torch.Tensor, d: dt.DataType) -> int:
         v = vals[s:s + _LIMB_ROWS]
         hi = v >> 32 if d.is_signed_integer else (v >> 32) & 0xFFFFFFFF
         parts += [hi.sum(), (v & 0xFFFFFFFF).sum()]
-    got = torch.stack(parts).tolist()
+    got = to_host("aggregate.exact_sum", torch.stack(parts)).tolist()
     return sum((hi << 32) + lo for hi, lo in zip(got[::2], got[1::2]))
 
 
@@ -77,7 +78,7 @@ def sum_checked(col: PrimitiveColumn) -> Scalar:
     lo, hi = dt.integer_bounds(d)
     if d.byte_width < 8:
         wide = dt.widen(vals, d).sum()
-        if not lo <= int(wide) <= hi:
+        if not lo <= int(to_host("aggregate.sum_checked", wide)) <= hi:
             raise ArithmeticOverflow("sum overflowed")
         return Scalar(wide.to(vals.dtype), d)
     if not lo <= _exact_sum(vals, d) <= hi:
@@ -94,13 +95,15 @@ def _extreme_row(col: Column, want_max: bool) -> Optional[int]:
     key = key ^ _SIGN
     if validity is None:
         pick = torch.argmax if want_max else torch.argmin
-        return int(pick(key)) if key.numel() else None
+        return int(to_host("aggregate.extreme", pick(key))) \
+            if key.numel() else None
     info = torch.iinfo(torch.int64)
     masked = torch.where(validity, key, info.min if want_max else info.max)
     m = masked.max() if want_max else masked.min()
     hit = validity & (key == m)
-    row, found = torch.stack([torch.argmax(hit.to(torch.uint8)),
-                              hit.any().to(torch.int64)]).tolist()
+    row, found = to_host("aggregate.extreme", torch.stack([
+        torch.argmax(hit.to(torch.uint8)),
+        hit.any().to(torch.int64)])).tolist()
     return row if found else None
 
 
@@ -114,7 +117,7 @@ def _extremum(col: Column, want_max: bool) -> Scalar:
     if i is None:
         return Scalar(None, col.dtype, valid=False)
     if isinstance(col, DictionaryColumn):
-        code = int(col.codes[i])
+        code = int(to_host("aggregate.extreme", col.codes[i]))
         return Scalar(col.values.slice(code, 1).to_pylist()[0], col.dtype)
     return Scalar(col.slice(i, 1).to_pylist()[0], col.dtype)
 
@@ -214,8 +217,9 @@ def _decimal_reduce(col: Column, fold: Callable) -> Scalar:
     if isinstance(col, DecimalColumn):
         vals = [v for v in col.to_pyints() if v is not None]
     else:
-        raw = col.values.cpu().tolist()
-        valid = None if col.validity is None else col.validity.cpu().tolist()
+        raw = to_host("aggregate.decimal", col.values).tolist()
+        valid = None if col.validity is None else \
+            to_host("aggregate.decimal", col.validity).tolist()
         vals = raw if valid is None else [x for x, ok in zip(raw, valid)
                                           if ok]
     if not vals:

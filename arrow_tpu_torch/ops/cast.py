@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
-from ..config import sync_guard
+from ..utils.trace import to_host
 from ..core import nested as nd, validity as vd
 from ..core.column import (Column, DictionaryColumn, ListColumn, NullColumn,
                            PrimitiveColumn, StringColumn, StructColumn,
@@ -343,8 +343,7 @@ def _apply_failures(values: torch.Tensor, failed: torch.Tensor,
     if col_validity is not None:
         failed = failed & col_validity
     if not options.safe:
-        sync_guard("cast(safe=False)")
-        count = int(failed.sum())
+        count = int(to_host("cast(safe=False)", failed.sum(), guard=True))
         if count:
             raise CastError(f"cast failed for {count} values")
         return PrimitiveColumn(values, to, col_validity)
@@ -633,8 +632,9 @@ def _cast_interval(col: Column, to: dt.DataType,
         if options.safe:
             validity = vd.union(validity, ~bad)
         else:
-            sync_guard("cast(safe=False)")
-            if bool((bad if validity is None else bad & validity).any()):
+            if bool(to_host("cast(safe=False)", (
+                    bad if validity is None else bad & validity).any(),
+                    guard=True)):
                 raise CastError("duration -> interval[mdn] overflow")
         z = torch.zeros(v.shape, dtype=torch.int32, device=v.device)
         return nd.IntervalMDNColumn(z, z, ns, validity)

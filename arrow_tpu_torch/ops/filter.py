@@ -28,7 +28,6 @@ from typing import Tuple
 import torch
 
 from .. import dtypes as dt
-from ..config import sync_guard
 from ..core.column import (Column, DictionaryColumn, NullColumn,
                            PrimitiveColumn)
 from ..core.datum import as_datum
@@ -36,6 +35,7 @@ from ..core.nested import IntervalMDNColumn
 from ..core.table import Table
 from ..errors import ArrowInvalid
 from ..kernels.compact import compact
+from ..utils.trace import span, to_host
 from .take import take
 
 __all__ = ["FilterPredicate", "compact_by_mask", "filter", "filter_table",
@@ -54,8 +54,8 @@ class FilterPredicate:
         if predicate.validity is not None:
             keep = torch.logical_and(keep, predicate.validity)
         self.keep = keep.contiguous()
-        sync_guard("filter")
-        self.count = int(keep.sum())     # host sync: one scalar
+        # host sync: one scalar
+        self.count = int(to_host("filter", keep.sum(), guard=True))
         self._indices = None
 
     @property
@@ -150,9 +150,10 @@ def filter_table(table: Table, predicate) -> Table:
     """filter_record_batch (filter.rs:171): one predicate, all columns,
     every fixed-width buffer of the batch and the positions the string
     columns need in ONE compaction."""
-    pred = _predicate(predicate)
-    return Table(tuple(_filter_columns(table.columns, pred)), table.schema,
-                 _validated=True)
+    with span("op.filter", rows=table.num_rows):
+        pred = _predicate(predicate)
+        return Table(tuple(_filter_columns(table.columns, pred)),
+                     table.schema, _validated=True)
 
 
 def filter_static(values: torch.Tensor, keep: torch.Tensor

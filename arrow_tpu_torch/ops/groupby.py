@@ -71,6 +71,7 @@ from .concat import concat_tables
 from .row_format import KeyRange, SortKey, dictionary_value_ranks
 from .strings import dictionary_decode, dictionary_encode
 from .take import take
+from ..utils.trace import annotate, span, to_host
 
 __all__ = ["group_by", "AggSpec", "GroupByAccumulator", "segment_aggregate",
            "float_group_sums"]
@@ -131,7 +132,8 @@ def float_group_sums(contrib: torch.Tensor,
     boundary difference."""
     finite = torch.isfinite(contrib)
     sums = diff_fn(torch.where(finite, contrib, 0.0))
-    if bool(finite.all()):                # host sync (the reference's cond)
+    # host sync (the reference's cond)
+    if bool(to_host("group_by.float_sums", finite.all())):
         return sums
     has_nan = diff_fn(torch.isnan(contrib).to(torch.int64)) > 0
     has_pinf = diff_fn((contrib == math.inf).to(torch.int64)) > 0
@@ -148,8 +150,8 @@ def group_by(table: Table, keys: Sequence[str],
     """GROUP BY keys with per-column aggregates; one output row per
     distinct key combination, in ascending key order, nulls first, the
     first key most significant (the reference's deterministic order)."""
-    return _group_by(table, keys, aggs, chunk=True)
-
+    with span("op.group_by"):
+        return _group_by(table, keys, aggs, chunk=True)
 
 def _group_by(table: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
               chunk: bool) -> Table:
@@ -166,13 +168,16 @@ def _group_by(table: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
               and isinstance(table.column(a.column),
                              (StringColumn, DictionaryColumn))]
     if str_mm and table.num_rows:
+        annotate("op.group_by", plan="string_minmax")
         return _group_by_string_minmax(table, keys, aggs, str_mm, chunk)
     key_cols = [table.column(k) for k in keys]
     for c in key_cols:
         rf.key_kind(c)                    # raises on unions and nulls
     if table.num_rows == 0:
+        annotate("op.group_by", plan="empty")
         return _empty_group_by(table, keys, aggs)
     if any(isinstance(c, StringColumn) for c in key_cols):
+        annotate("op.group_by", plan="string_keys")
         return _group_by_string_keys(table, keys, aggs, chunk)
     for a in aggs:
         src = table.column(a.column)
@@ -182,13 +187,17 @@ def _group_by(table: Table, keys: Sequence[str], aggs: Sequence[AggSpec],
 
     out = _dictionary_plan(table, key_cols, keys, aggs)
     if out is not None:
+        annotate("op.group_by", plan="dictionary")
         return out
     key_ranges, val_ranges = _range_scan(table, key_cols, aggs)
     out = _small_domain_plan(table, key_cols, keys, aggs, key_ranges)
     if out is not None:
+        annotate("op.group_by", plan="small_domain")
         return out
     if chunk and table.num_rows > _SORT_AGG_CHUNK:
+        annotate("op.group_by", plan="chunked")
         return _group_by_chunked(table, keys, aggs, table.num_rows)
+    annotate("op.group_by", plan="sort")
     return _sort_plan(table, key_cols, keys, aggs, key_ranges, val_ranges)
 
 
@@ -307,7 +316,8 @@ def _scan(cols: Sequence[PrimitiveColumn]) -> List[KeyRange]:
             nul = (~c.validity).any().to(torch.int64)
         rows.append(torch.stack([lo, hi, nul]))
     out = []
-    for c, (lo, hi, nul) in zip(cols, torch.stack(rows).tolist()):
+    got = to_host("group_by.range_scan", torch.stack(rows)).tolist()
+    for c, (lo, hi, nul) in zip(cols, got):
         if c.dtype.name == "uint64":
             lo, hi = (lo ^ _SIGN) & ((1 << 64) - 1), \
                 (hi ^ _SIGN) & ((1 << 64) - 1)
@@ -512,7 +522,8 @@ def _k2_plan(table: Table, keys, aggs, parts: Sequence[_Digits],
         # null digit sorts first; values by rank
         order_keys.append(np.append(p.ranks.astype(np.int64) + 1, 0)[digit])
     order = np.lexsort(order_keys[::-1])
-    occupied = (occupancy > 0).cpu().numpy()   # host sync (cardinality)
+    # host sync (cardinality)
+    occupied = to_host("group_by.occupancy", occupancy > 0).numpy()
     sel = torch.from_numpy(order[occupied[order]]).to(device)
 
     out_cols: List[Column] = [key_column(i, d, z, sel)
@@ -535,7 +546,8 @@ def _k2_plan(table: Table, keys, aggs, parts: Sequence[_Digits],
             c = counts[sum_slot[("cnt", a.column)]] \
                 if ("cnt", a.column) in sum_slot else occupancy
         group_valid = c[sel] > 0
-        group_mask = None if bool(group_valid.all()) else group_valid
+        group_mask = None if bool(to_host(
+            "group_by.group_valid", group_valid.all())) else group_valid
         if a.op == "sum":
             vals = s.to(src.dtype.to_torch())
         elif a.op == "mean":
@@ -589,7 +601,8 @@ def _sort_stage(key_cols, key_ranges, n: int):
     order, run_start, cap = _discover(key_cols, key_ranges, n)
     (first_idx, starts), count = compact(run_start, [order], out_cap=cap,
                                          positions=torch.int64)
-    num_groups = int(count)     # the plan's one sync (output cardinality)
+    # the plan's one sync (output cardinality)
+    num_groups = int(to_host("group_by.groups", count))
     return order, run_start, starts[:num_groups], first_idx[:num_groups]
 
 
@@ -727,7 +740,8 @@ def _sort_plan(table: Table, key_cols, keys, aggs, key_ranges,
     del sorted_cols, minmax_sorted, order, run_start
 
     flags = [g.all() for _, g in outs if g is not None]
-    flags = iter(torch.stack(flags).tolist() if flags else [])
+    flags = iter(to_host("group_by.group_valid", torch.stack(flags))
+                 .tolist() if flags else [])
     out_cols: List[Column] = [take(c, first_idx) for c in key_cols]
     fields = [table.schema.field(k) for k in keys]
     for a, (vals, gvalid) in zip(aggs, outs):
@@ -898,7 +912,8 @@ class GroupByAccumulator:
                 m = s_col.values.to(torch.float64) / \
                     c_col.values.clamp(min=1).to(torch.float64)
                 gvalid = c_col.values > 0
-                mask = None if bool(gvalid.all()) else gvalid
+                mask = None if bool(to_host("group_by.group_valid",
+                                            gvalid.all())) else gvalid
                 out_cols.append(PrimitiveColumn(m, dt.float64, mask))
                 fields.append(dt.Field(name, dt.float64))
             elif kind == "recount":

@@ -54,6 +54,7 @@ from ..core.table import Table
 from ..errors import ArrowInvalid
 from ..kernels.compact import compact
 from ..utils.bits import lsr, mix64
+from ..utils.trace import annotate, span as trace_span, to_host
 from .row_format import encode_value_key
 from .strings import (_dict_slot_validity, dictionary_encode,
                       merged_string_ranks)
@@ -148,7 +149,8 @@ def _minmax(key: torch.Tensor, valid: vd.Mask):
 
 def _to_u64(values: Sequence[torch.Tensor]) -> List[int]:
     """Scalars of the sign-flipped domain as u64 Python ints: one fetch."""
-    return [(v ^ _SIGN) & _U64 for v in torch.stack(list(values)).tolist()]
+    got = to_host("join.key_range", torch.stack(list(values))).tolist()
+    return [(v ^ _SIGN) & _U64 for v in got]
 
 
 def _key_range_scan(lkey, lvalid, rkey, rvalid) -> List[int]:
@@ -204,7 +206,7 @@ def _indices_of_mask(mask: torch.Tensor) -> torch.Tensor:
     """The rows where `mask` holds, ascending, int64: K1 with the
     positions as its only output, one count sync."""
     (pos,), count = compact(mask, (), positions=torch.int64)
-    return pos[:int(count)]
+    return pos[:int(to_host("join.row_list", count))]
 
 
 def _semi_anti(matched: torch.Tensor, how: str):
@@ -224,7 +226,7 @@ def _finish_index_join(ri32: torch.Tensor, how: str):
         # one K1 launch: the matched build rows and their probe rows'
         # positions; its count is the join's one sync here
         (ri, li), count = compact(matched, (ri32,), positions=torch.int64)
-        n = int(count)
+        n = int(to_host("join.index_matches", count))
         return li[:n], ri[:n].to(torch.int64)
     return _semi_anti(matched, how)
 
@@ -247,6 +249,7 @@ def _merge_stage(lkey, lvalid, rkey, rvalid, kmin: int, kmax: int):
     key = torch.cat([rkey, lkey])
     if kmin <= kmax and kmax - kmin < 1 << 61:
         # packed plan: (key - kmin, null class, side) in one word
+        annotate("op.join", plan="packed merge")
         word = (torch.where(valid, key - dt.storage_int(kmin), 0) << 2) \
             | ((~valid).to(torch.int64) << 1) | side.to(torch.int64)
         if (kmax - kmin).bit_length() + 2 <= 31:
@@ -257,6 +260,7 @@ def _merge_stage(lkey, lvalid, rkey, rvalid, kmin: int, kmax: int):
         del word, run
     else:
         # general plan: stable passes, (null class, side) then the key
+        annotate("op.join", plan="general merge")
         tag = ((~valid).to(torch.uint8) << 1) | side.to(torch.uint8)
         order = torch.sort(tag, stable=True).indices
         skey, o2 = torch.sort((key ^ _SIGN)[order], stable=True)
@@ -287,7 +291,7 @@ def _merge_stage(lkey, lvalid, rkey, rvalid, kmin: int, kmax: int):
 def _expand(counts: torch.Tensor, start: torch.Tensor, order: torch.Tensor):
     """(probe rows, build rows) of every match, probe-ordered: one count
     sync, repeat_interleave and one gather (join.py:312-372)."""
-    total = int(counts.sum())
+    total = int(to_host("join.match_count", counts.sum()))
     dev = counts.device
     li = torch.repeat_interleave(
         torch.arange(counts.shape[0], device=dev), counts, output_size=total)
@@ -323,6 +327,7 @@ def join_indices(left: Table, right: Table, on: Sequence[str],
     dev = _device(left, right)
     n_l, n_r = left.num_rows, right.num_rows
     if n_l == 0 or n_r == 0:
+        annotate("op.join", plan="empty")
         return _no_rows(n_l, how, dev)
     _check_rows(n_r, "build")
     multi = len(on) > 1
@@ -332,7 +337,8 @@ def join_indices(left: Table, right: Table, on: Sequence[str],
     span = bmax - bmin + 1 if bmin <= bmax else 0
     if not multi and _index_fits(span, n_r):
         table, dup = _index_build(rkey, rvalid, bmin, span)
-        if not bool(dup):
+        if not bool(to_host("join.index_duplicates", dup)):
+            annotate("op.join", plan="index")
             return _finish_index_join(
                 _index_probe(lkey, lvalid, table, bmin), how)
         del table
@@ -351,7 +357,7 @@ def join_indices(left: Table, right: Table, on: Sequence[str],
         for lk, rk in zip(lkeys, rkeys):
             eq = lk[li] == rk[ri]
             ok = eq if ok is None else ok & eq
-        n_ok = int(ok.sum())
+        n_ok = int(to_host("join.collisions", ok.sum()))
         if n_ok != li.shape[0]:
             (li, ri), _ = compact(ok, (li, ri), out_cap=n_ok)
             collided = True
@@ -402,7 +408,7 @@ class HashJoiner:
         span = hi - lo + 1 if lo <= hi else 0
         if 0 < span <= self._SPAN_CAP:
             table, dup = _index_build(rkey, rvalid, lo, span)
-            if not bool(dup):
+            if not bool(to_host("join.index_duplicates", dup)):
                 self.table, self.kmin, self._plan = table, lo, "index"
 
     def _probe(self, left: Table) -> torch.Tensor:
@@ -435,7 +441,8 @@ class HashJoiner:
     def probe_count(self, left: Table) -> Tuple[int, int]:
         """(matched pairs, checksum of the matched build row ids), with no
         pair materialised on the index plan; one host fetch."""
-        cnt, chk = torch.stack(list(self.probe_count_device(left))).tolist()
+        cnt, chk = to_host("join.probe_count", torch.stack(
+            list(self.probe_count_device(left)))).tolist()
         return cnt, chk
 
 
@@ -445,6 +452,11 @@ def join(left: Table, right: Table, on: Sequence[str], how: str = "inner",
     """Join two tables (join.py:722-746): the left columns, then the right
     columns that are not keys (nullable; a clashing name takes
     `suffix`).  Semi and anti joins return the left columns only."""
+    with trace_span("op.join"):
+        return _join(left, right, on, how, right_on, suffix)
+
+
+def _join(left, right, on, how, right_on, suffix) -> Table:
     right_on_l = list(right_on or on)
     li, ri = join_indices(left, right, on, how, right_on)
     cols: List[Column] = [take(c, li) for c in left.columns]
@@ -452,7 +464,8 @@ def join(left: Table, right: Table, on: Sequence[str], how: str = "inner",
     if how in ("semi", "anti"):
         return Table(tuple(cols), dt.Schema(tuple(fields)), _validated=True)
     null_ext = ri < 0
-    any_null = how == "left" and bool(null_ext.any())
+    any_null = how == "left" and bool(to_host("join.left_nulls",
+                                              null_ext.any()))
     r_idx = PrimitiveColumn(torch.where(null_ext, 0, ri), dt.int64,
                             ~null_ext if any_null else None)
     taken = set(left.schema.names)

@@ -82,6 +82,7 @@ from ..core.nested import (DecimalColumn, FixedSizeBinaryColumn,
                            FixedSizeListColumn, IntervalMDNColumn,
                            ListViewColumn, MapColumn, RunEndColumn)
 from ..errors import ArrowNotImplementedError
+from ..utils.trace import to_host
 
 __all__ = ["SortOptions", "SortField", "SortKey", "KeyRange",
            "dictionary_value_ranks", "key_kind", "key_parts", "encode_keys",
@@ -149,7 +150,7 @@ def _value_ranks(values: Column) -> Tuple[np.ndarray, np.ndarray]:
         return value_ranks(values)
     if isinstance(values, PrimitiveColumn):
         vals = values.to_numpy()
-        is_null = ~values.is_valid_mask().cpu().numpy()
+        is_null = ~to_host("row_format.ranks", values.is_valid_mask()).numpy()
         ranks = np.zeros(len(vals), np.uint64)
         if (~is_null).any():
             _, inv = np.unique(vals[~is_null], return_inverse=True)
@@ -730,7 +731,8 @@ def _decode_key(key: torch.Tensor, validity: torch.Tensor, src: Column
                 ) -> Column:
     """One column from its u64 value keys (row_format.py:321-363): the
     inverse of `encode_value_key`."""
-    mask = None if bool(validity.all()) else validity
+    mask = None if bool(to_host("row_format.decode", validity.all())) \
+        else validity
     d = src.dtype
     if isinstance(src, PrimitiveColumn):
         if d.is_floating:

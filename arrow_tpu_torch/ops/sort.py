@@ -48,7 +48,6 @@ import numpy as np
 import torch
 
 from .. import dtypes as dt
-from ..config import sync_guard
 from ..core.column import Column, DictionaryColumn, PrimitiveColumn
 from ..core.table import Table
 from ..errors import ArrowInvalid
@@ -57,6 +56,7 @@ from . import row_format as rf
 from .row_format import SortOptions
 from .strings import device_table
 from .take import take
+from ..utils.trace import span, to_host
 
 __all__ = ["SortOptions", "SortColumn", "sort_to_indices", "sort",
            "lexsort_to_indices", "lexsort", "sort_table", "rank",
@@ -95,8 +95,9 @@ def lexsort_to_indices(columns: Sequence[SortColumn],
         raise ArrowInvalid("lexsort of zero columns")
     if len({len(c.column) for c in columns}) != 1:
         raise ArrowInvalid("lexsort column length mismatch")
-    return _indices([c.column for c in columns],
-                    [c.options for c in columns], limit)
+    with span("op.sort"):
+        return _indices([c.column for c in columns],
+                        [c.options for c in columns], limit)
 
 
 def _decodable(col: Column) -> bool:
@@ -267,9 +268,9 @@ def partition(columns: Sequence[Column]) -> Partitions:
     change = _partition_change(columns)
     if change is None:
         return Partitions(np.array([0]))
-    sync_guard("partition")
     (pos,), count = compact(change, (), positions=torch.int64)
-    inner = pos[:int(count)].cpu().numpy() + 1
+    kept = int(to_host("partition", count, guard=True))
+    inner = to_host("partition", pos[:kept]).numpy() + 1
     return Partitions(np.concatenate([[0], inner, [n]]))
 
 

@@ -53,6 +53,7 @@ from ..core.column import (Column, DictionaryColumn, ListColumn,
 from ..core.datum import Scalar
 from ..errors import ArrowNotImplementedError, ArrowTypeError
 from ..utils import hostcodec
+from ..utils.trace import to_host
 
 __all__ = ["dictionary_encode", "dictionary_decode", "value_ranks",
            "merged_string_ranks", "compare", "device_table", "like", "ilike",
@@ -64,8 +65,8 @@ __all__ = ["dictionary_encode", "dictionary_decode", "value_ranks",
 
 def _host_buffers(col: StringColumn) -> Tuple[np.ndarray, np.ndarray]:
     """(int64 offsets, bytes) of a string column on the host."""
-    return (col.offsets.cpu().numpy().astype(np.int64, copy=False),
-            col.data.cpu().numpy())
+    return (to_host("strings.offsets", col.offsets).numpy().astype(
+        np.int64, copy=False), to_host("strings.bytes", col.data).numpy())
 
 
 def _dense_ranks(offs: np.ndarray, data: np.ndarray) -> np.ndarray:
@@ -122,7 +123,7 @@ def value_ranks(values: StringColumn) -> Tuple[np.ndarray, np.ndarray]:
     values: the valid values ranked by their bytes, null slots rank 0
     (row_format.py:92-115)."""
     is_null = np.zeros(len(values), bool) if values.validity is None \
-        else ~values.validity.cpu().numpy()
+        else ~to_host("strings.validity", values.validity).numpy()
     ranks = np.zeros(len(values), np.uint64)
     valid = np.nonzero(~is_null)[0]
     if len(valid):
@@ -151,7 +152,8 @@ def _dict_slot_validity(dcol: DictionaryColumn) -> vd.Mask:
     if entries is None:
         return dcol.validity
     entry_valid = device_table(dcol.values, ("entry_valid",), dcol.device,
-                               lambda: entries.cpu().numpy())
+                               lambda: to_host("strings.validity",
+                                               entries).numpy())
     return vd.union(dcol.validity, _gather(entry_valid, dcol.codes))
 
 
@@ -282,7 +284,8 @@ def _is_ascii(b: bytes) -> bool:
 def _any_high_byte(data: torch.Tensor) -> bool:
     """Whether any byte is outside ASCII: one reduction where the bytes
     are, one flag read."""
-    return data.numel() > 0 and bool((data >= 0x80).any())
+    return data.numel() > 0 and bool(to_host("strings.high_byte",
+                                             (data >= 0x80).any()))
 
 
 def _on_device(hits: np.ndarray, col: Column) -> torch.Tensor:
@@ -423,8 +426,9 @@ def regexp_match(col, pattern: str, flags: str = "") -> Column:
         m = None if v is None else rx.search(v)
         per_value.append(None if m is None else list(m.groups())
                          if rx.groups else [m.group(0)])
-    codes = d.codes.cpu().numpy().tolist()
-    valid = None if d.validity is None else d.validity.cpu().numpy()
+    codes = to_host("strings.codes", d.codes).numpy().tolist()
+    valid = None if d.validity is None else \
+        to_host("strings.validity", d.validity).numpy()
     lb = ListBuilder(StringBuilder(d.device))
     for i, c in enumerate(codes):
         row = per_value[c] if valid is None or valid[i] else None
@@ -499,7 +503,7 @@ def concat_elements(lhs: Column, rhs: Column) -> Column:
     pair = dl.codes.to(torch.int64) * m + dr.codes.to(torch.int64)
     uniq, inv = torch.unique(pair, sorted=True, return_inverse=True)
     vals = []
-    for p in uniq.tolist():
+    for p in to_host("strings.pairs", uniq).tolist():
         a, b = lv[p // m], rv[p % m]
         vals.append(None if a is None or b is None else a + b)
     out = DictionaryColumn(inv.to(torch.int32), StringColumn.from_pylist(

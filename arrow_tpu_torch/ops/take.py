@@ -39,7 +39,6 @@ from typing import Tuple, Union
 import torch
 
 from .. import dtypes as dt
-from ..config import sync_guard
 from ..core import validity as vd
 from ..core.column import (Column, DictionaryColumn, ListColumn, NullColumn,
                            PrimitiveColumn, StringColumn, StructColumn)
@@ -49,6 +48,7 @@ from ..core.nested import (DecimalColumn, FixedSizeBinaryColumn,
                            UnionColumn)
 from ..core.table import Table
 from ..errors import ArrowInvalid
+from ..utils.trace import span, to_host
 
 __all__ = ["take", "take_table", "range_gather"]
 
@@ -74,9 +74,8 @@ def take(values: Column, indices, *, check_bounds: bool = False) -> Column:
     n = len(values)
     idx = dt.widen(indices.values, indices.dtype)
     if check_bounds:
-        sync_guard("take(check_bounds=True)")
         bad = ((idx < 0) | (idx >= n)) & indices.is_valid_mask()
-        if bool(bad.any()):
+        if bool(to_host("take(check_bounds=True)", bad.any(), guard=True)):
             raise ArrowInvalid(f"take index out of bounds 0..{n}")
     return _take(values, idx.clamp(0, max(n - 1, 0)), indices)
 
@@ -163,7 +162,7 @@ def range_gather(offsets: torch.Tensor, idx: torch.Tensor, limit: int
     sync.  Positions are int32 while the output and the source (`limit`
     elements) fit in it, else int64."""
     starts, ends, new_offs = _row_ranges(offsets, idx)
-    total = int(new_offs[-1])              # the one host sync
+    total = int(to_host("take.range_gather", new_offs[-1]))  # one sync
     return new_offs.to(offsets.dtype), _source_index(starts, ends, new_offs,
                                                      total, limit)
 
@@ -202,7 +201,7 @@ def _gather_bytes(offsets: torch.Tensor, data: torch.Tensor,
     written into one output, with one more sync for the piece bounds.
     Past 2^31 bytes int32 offsets raise."""
     starts, ends, new_offs = _row_ranges(offsets, idx)
-    total = int(new_offs[-1])
+    total = int(to_host("take.string_bytes", new_offs[-1]))
     if offsets.dtype == torch.int32 and total > torch.iinfo(torch.int32).max:
         raise ArrowInvalid(f"{total} bytes overflow int32 offsets: use a "
                            "large string type")
@@ -212,9 +211,10 @@ def _gather_bytes(offsets: torch.Tensor, data: torch.Tensor,
         return new_offs.to(offsets.dtype), data.index_select(0, src)
     targets = torch.arange(GATHER_PIECE, total, GATHER_PIECE,
                            device=idx.device)
-    cuts = torch.searchsorted(new_offs[1:], targets, right=True).tolist()
+    cuts = to_host("take.string_pieces", torch.searchsorted(
+        new_offs[1:], targets, right=True)).tolist()
     rows = sorted({0, idx.shape[0], *cuts})
-    bounds = new_offs[rows].tolist()
+    bounds = to_host("take.string_pieces", new_offs[rows]).tolist()
     out = torch.empty(total, dtype=torch.uint8, device=data.device)
     for (a, b), (lo, hi) in zip(zip(rows, rows[1:]),
                                 zip(bounds, bounds[1:])):
@@ -247,7 +247,8 @@ def _take_run(values: RunEndColumn, idx: torch.Tensor,
 def take_table(table: Table, indices, *, check_bounds: bool = False) -> Table:
     """take_record_batch (take.rs:964): one index column over every
     column of the batch."""
-    indices = _indices(indices)
-    return Table(tuple(take(c, indices, check_bounds=check_bounds)
-                       for c in table.columns), table.schema,
-                 _validated=True)
+    with span("op.take"):
+        indices = _indices(indices)
+        return Table(tuple(take(c, indices, check_bounds=check_bounds)
+                           for c in table.columns), table.schema,
+                     _validated=True)

@@ -53,6 +53,7 @@ from .core.column import (Column, NullColumn, PrimitiveColumn, StringColumn,
 from .core.datum import scalar as make_scalar
 from .core.table import Table
 from .errors import ArrowInvalid
+from .utils.trace import span, to_host
 
 __all__ = ["execute_sql", "execute_sql_update", "bind_sql_params"]
 
@@ -603,6 +604,11 @@ def _default_name(e, i: int) -> str:
 def execute_sql(tables: Dict[str, Table], query: str) -> Table:
     """Parse and execute one SELECT statement against `tables`, on the
     device of the tables it reads."""
+    with span("sql.execute"):
+        return _select(tables, query)
+
+
+def _select(tables: Dict[str, Table], query: str) -> Table:
     p = _Parser(_tokenize(query))
     p.expect("kw", "select")
     distinct = p.accept("kw", "distinct") is not None
@@ -968,7 +974,7 @@ def _mask_arrays(mask_col):
     m = mask_col.values.to(torch.bool)
     if getattr(mask_col, "validity", None) is not None:
         m = m & mask_col.validity
-    return m, int(m.sum())
+    return m, int(to_host("sql.matched", m.sum()))
 
 
 def _select_tail(query: str) -> str:
@@ -996,6 +1002,12 @@ def execute_sql_update(tables: Dict[str, Table], query: str, *,
     CREATE TABLE [IF NOT EXISTS] t (c TYPE [, ...]) | AS SELECT ...;
     DROP TABLE [IF EXISTS] t.
     """
+    with span("sql.execute"):
+        return _update(tables, query, device)
+
+
+def _update(tables: Dict[str, Table], query: str, device: DeviceLike
+            ) -> Tuple[Dict[str, Optional[Table]], int]:
     p = _Parser(_tokenize(query))
 
     if _word(p, "insert"):

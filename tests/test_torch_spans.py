@@ -1,0 +1,237 @@
+"""The port's spans and its one readback helper (arrow_tpu_torch/utils/
+trace.py): spans nest under the SQL statement that caused them, self time
+on a hand-built tree, nothing recorded (and no profiler annotation made)
+while recording is off, the spans on torch.profiler's timeline by name,
+`to_host`'s record and its guard inside a fused region, the plan each
+operator span names, and `span_report`'s totals.  All on the CPU."""
+
+import numpy as np
+import pytest
+import torch
+
+import arrow_tpu_torch as att
+from arrow_tpu_torch import dtypes as pdt
+from arrow_tpu_torch.config import fused_region
+from arrow_tpu_torch.core.column import PrimitiveColumn, from_numpy
+from arrow_tpu_torch.ops.cast import CastOptions, cast
+from arrow_tpu_torch.ops.filter import filter as pfilter
+from arrow_tpu_torch.ops.groupby import AggSpec, group_by
+from arrow_tpu_torch.ops.join import join
+from arrow_tpu_torch.ops.sort import partition
+from arrow_tpu_torch.ops.take import take
+from arrow_tpu_torch.sql import execute_sql
+from arrow_tpu_torch.utils import trace
+
+MS = 1_000_000
+QUERY = ("SELECT o.cust, SUM(o.amount) AS total, COUNT(*) AS n FROM orders o "
+         "JOIN custs c ON o.cust = c.cid WHERE o.amount > 2 "
+         "GROUP BY o.cust ORDER BY total DESC LIMIT 2")
+
+
+@pytest.fixture(autouse=True)
+def fresh_spans():
+    trace.reset_spans()
+    yield
+    trace.reset_spans()
+
+
+def _tables():
+    orders = att.Table.from_pydict({
+        "cust": np.array([1, 2, 1, 3, 2, 1, 3, 3, 2, 1], np.int64),
+        "amount": np.array([10.0, 20.5, 5.0, 7.25, 100.0, 1.0, 8.0, 9.5,
+                            30.0, 2.5]),
+        "tag": ["aa", "ab", "ba", "bb", "aa", "ab", "ba", "bb", "aa", "cc"],
+    }, device="cpu")
+    custs = att.Table.from_pydict({
+        "cid": np.array([1, 2, 3, 4], np.int64),
+        "name": ["ann", "bob", "cat", "dan"]}, device="cpu")
+    return {"orders": orders, "custs": custs}
+
+
+def _recorded(fn):
+    with trace.recording():
+        out = fn()
+    return out, trace.spans()
+
+
+def test_spans_nest_under_the_statement():
+    out, spans = _recorded(lambda: execute_sql(_tables(), QUERY))
+    assert out.num_rows == 2
+    by_id = {s.id: s for s in spans}
+    top = [s for s in spans if s.parent is None]
+    assert [s.name for s in top] == ["sql.execute"]
+    assert {s.root for s in spans} == {top[0].id}
+    names = {s.name for s in spans}
+    assert {"op.join", "op.filter", "op.group_by", "op.sort", "op.take",
+            "kernel.k1", "readback"} <= names
+    for s in spans:
+        if s.name.startswith("op."):
+            assert by_id[s.parent].name == "sql.execute"
+        if s.name == "kernel.k1":
+            assert by_id[s.parent].name.startswith("op.")
+        if s.parent is not None:
+            up = by_id[s.parent]
+            assert up.start_ns <= s.start_ns <= s.end_ns <= up.end_ns
+        assert s.thread == top[0].thread
+    # spans close before their parent does
+    assert spans[-1] is top[0]
+
+
+def test_two_statements_two_roots():
+    tables = _tables()
+    _, spans = _recorded(lambda: [execute_sql(tables, QUERY),
+                                  execute_sql(tables, QUERY)])
+    roots = [s for s in spans if s.name == "sql.execute"]
+    assert len(roots) == 2
+    for r in roots:
+        assert r.root == r.id
+        assert any(s.root == r.id and s.name == "op.join" for s in spans)
+
+
+def test_self_ns_on_a_hand_built_tree():
+    """a 0-100 holds b 10-40 (which holds c 20-30) and d 30-60: d starts
+    inside b, so a's children cover 10-60 once; c and d have no
+    children."""
+    Span = trace.Span
+    tree = [Span("a", 0, 100 * MS, 1, None, 1, 0, {}),
+            Span("b", 10 * MS, 40 * MS, 2, 1, 1, 0, {}),
+            Span("c", 20 * MS, 30 * MS, 3, 2, 1, 0, {}),
+            Span("d", 30 * MS, 60 * MS, 4, 1, 1, 0, {})]
+    assert trace.self_ns(tree) == {1: 50 * MS, 2: 20 * MS, 3: 10 * MS,
+                                   4: 30 * MS}
+
+
+def test_off_records_nothing_and_annotates_nothing(monkeypatch):
+    made = []
+    real = trace._profiler.record_function
+
+    def counting(name, *args):
+        made.append(name)
+        return real(name, *args)
+
+    monkeypatch.setattr(trace._profiler, "record_function", counting)
+    execute_sql(_tables(), QUERY)
+    trace.to_host("x", torch.ones(3))
+    assert trace.span("op.join") is trace._OFF
+    assert trace.spans() == [] and made == []
+    with trace.recording():
+        execute_sql(_tables(), QUERY)
+    assert "sql.execute" in made and len(trace.spans()) == len(made)
+
+
+def test_spans_appear_in_the_profile_by_name():
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        execute_sql(_tables(), QUERY)
+    recorded = {s.name for s in trace.spans()}
+    assert {"sql.execute", "op.join", "readback"} <= recorded
+    profiled = {e.name for e in prof.events()}
+    assert recorded <= profiled
+    n = sum(e.name == "readback" for e in prof.events())
+    assert n == sum(s.name == "readback" for s in trace.spans())
+
+
+def test_to_host_records_site_and_bytes():
+    t = torch.arange(12, dtype=torch.int32)
+    with trace.recording():
+        with trace.span("op.take"):
+            got = trace.to_host("take.range_gather", t)
+    assert torch.equal(got, t) and got.device.type == "cpu"
+    rb, op = trace.spans()
+    assert rb.name == "readback" and op.name == "op.take"
+    assert rb.parent == op.id and rb.root == op.id
+    assert rb.attrs["site"] == "take.range_gather"
+    assert rb.attrs["bytes"] == 48
+    assert 0 <= rb.attrs["drain_ns"] <= rb.end_ns - rb.start_ns
+
+
+def test_to_host_guard_inside_a_fused_region():
+    t = torch.ones(2)
+    with fused_region():
+        assert torch.equal(trace.to_host("unguarded", t), t)
+        with pytest.raises(RuntimeError, match="arrow_tpu_torch.fuse: "
+                                               "guarded reads"):
+            trace.to_host("guarded", t, guard=True)
+    assert torch.equal(trace.to_host("guarded", t, guard=True), t)
+
+
+@pytest.mark.parametrize("op", ["filter", "take_checked", "partition",
+                                "cast_unsafe"])
+def test_guarded_reads_raise_inside_a_fused_region(op):
+    """The reads `fuse` cannot capture still raise there, as the
+    guard before them did."""
+    x = PrimitiveColumn(torch.arange(10), pdt.int64)
+    calls = {
+        "filter": lambda: pfilter(x, PrimitiveColumn(x.values > 4,
+                                                     pdt.bool_)),
+        "take_checked": lambda: take(x, x, check_bounds=True),
+        "partition": lambda: partition([x]),
+        "cast_unsafe": lambda: cast(x, pdt.int8, CastOptions(safe=False)),
+    }
+    calls[op]()                                   # eager: fine
+    with fused_region():
+        with pytest.raises(RuntimeError, match="arrow_tpu_torch.fuse"):
+            calls[op]()
+
+
+def _dict_key(n):
+    return from_numpy(np.arange(n, dtype=np.int32) % 3, device="cpu",
+                      dictionary=["x", "y", "z"])
+
+
+GROUP_KEYS = {
+    "dictionary": lambda n: _dict_key(n),
+    "small_domain": lambda n: att.column(np.arange(n) % 5, device="cpu"),
+    "sort": lambda n: att.column(np.arange(n) * 1_000_003, device="cpu"),
+    "string_keys": lambda n: att.column([f"k{i % 4}" for i in range(n)],
+                                        device="cpu"),
+}
+
+
+@pytest.mark.parametrize("plan", sorted(GROUP_KEYS))
+def test_group_by_names_its_plan(plan):
+    n = 40
+    t = att.Table([GROUP_KEYS[plan](n), att.column(np.arange(n),
+                                                   device="cpu")],
+                  pdt.Schema((pdt.Field("k", GROUP_KEYS[plan](1).dtype),
+                              pdt.Field("v", pdt.int64))))
+    _, spans = _recorded(lambda: group_by(t, ["k"], [AggSpec("v", "sum")]))
+    ops = [s for s in spans if s.name == "op.group_by"]
+    assert len(ops) == 1 and ops[0].attrs["plan"] == plan
+    k2 = [s for s in spans if s.name == "kernel.k2"]
+    if plan != "sort":           # the K2 plans: one pass over n rows
+        assert [(s.parent, s.attrs) for s in k2] == [(ops[0].id,
+                                                      {"rows": n})]
+
+
+JOIN_RIGHT = {
+    "index": np.array([1, 2, 3, 4], np.int64),            # unique keys
+    "packed merge": np.array([1, 2, 2, 4], np.int64),     # a repeated key
+    "general merge": np.array([1, 2, 2, -(1 << 62)], np.int64),
+}
+
+
+@pytest.mark.parametrize("plan", sorted(JOIN_RIGHT))
+def test_join_names_its_plan(plan):
+    left = att.Table.from_pydict({"k": np.array([1, 2, 2, 3, 5], np.int64),
+                                  "a": np.arange(5)}, device="cpu")
+    right = att.Table.from_pydict({"k": JOIN_RIGHT[plan],
+                                   "b": np.arange(4)}, device="cpu")
+    _, spans = _recorded(lambda: join(left, right, ["k"]))
+    ops = [s for s in spans if s.name == "op.join"]
+    assert len(ops) == 1 and ops[0].attrs["plan"] == plan
+
+
+def test_span_report_totals():
+    Span = trace.Span
+    spans = [Span("readback", 1 * MS, 2 * MS, 2, 1, 1, 0,
+                  {"bytes": 3_000_000, "drain_ns": 0}),
+             Span("readback", 3 * MS, 5 * MS, 3, 1, 1, 0,
+                  {"bytes": 1_000_000, "drain_ns": 0}),
+             Span("op.join", 0, 10 * MS, 1, None, 1, 0, {})]
+    lines = trace.span_report(spans).splitlines()
+    assert lines[0].split() == ["span", "calls", "total", "ms", "self", "ms",
+                                "MB"]
+    assert lines[1].split() == ["op.join", "1", "10.00", "7.00", "0.000"]
+    assert lines[2].split() == ["readback", "2", "3.00", "3.00", "4.000"]
+    assert len(lines) == 3
