@@ -46,6 +46,9 @@ _SIGNATURES = {
     # slots (host), nslots, cnt_all_out, out, stream
     "atp_groupagg": ([_int, _ptr, _ptr, _i64, _int, _int, _i64, _int, _ptr,
                       _int, _i64, _ptr, _ptr], _int),
+    # device, offsets, off_width, data, n, k, rows, out, stream
+    "atp_strkey": ([_int, _ptr, _int, _ptr, _i64, _i64, _ptr, _ptr, _ptr],
+                   _int),
 }
 
 

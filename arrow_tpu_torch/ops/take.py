@@ -34,7 +34,7 @@ logical values.  The reference's take of a large_list returns the
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -194,14 +194,17 @@ GATHER_PIECE = 1 << 28
 
 
 def _gather_bytes(offsets: torch.Tensor, data: torch.Tensor,
-                  idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                  idx: torch.Tensor, total: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(new offsets, bytes) of the string rows `idx`: one range gather
-    (one host sync) up to GATHER_PIECE output bytes, else one a piece of
-    rows holding about that many (a row longer than a piece is a piece),
-    written into one output, with one more sync for the piece bounds.
+    (one host sync for the byte count, none when the caller knows it as
+    `total`) up to GATHER_PIECE output bytes, else one a piece of rows
+    holding about that many (a row longer than a piece is a piece),
+    written into one output, with two more syncs for the piece bounds.
     Past 2^31 bytes int32 offsets raise."""
     starts, ends, new_offs = _row_ranges(offsets, idx)
-    total = int(to_host("take.string_bytes", new_offs[-1]))
+    if total is None:
+        total = int(to_host("take.string_bytes", new_offs[-1]))
     if offsets.dtype == torch.int32 and total > torch.iinfo(torch.int32).max:
         raise ArrowInvalid(f"{total} bytes overflow int32 offsets: use a "
                            "large string type")

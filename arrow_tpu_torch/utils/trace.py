@@ -18,8 +18,10 @@ of arrow_tpu/utils/trace.py; the spans and `to_host` are the port's own).
   `torch.profiler.record_function` of its name, so it sits on the
   profiler's timeline beside the device's work.  The query path opens
   `sql.execute`, `op.join`, `op.filter`, `op.group_by`, `op.sort`,
-  `op.take`, `kernel.k1`, `kernel.k2` and `readback`; `annotate` adds a
-  plan choice to the open operator span.  `spans()` reads them,
+  `op.take`, `strings.encode` (a string column's dictionary encode: its
+  `rows`, `distinct` values and refinement `passes`, 0 on the host),
+  `kernel.k1`, `kernel.k2` and `readback`; `annotate` adds a plan choice
+  to the open operator span.  `spans()` reads them,
   `self_ns` gives each its self time (its duration less what its
   children cover), `span_report()` the table by name.
 - `to_host(what, tensor)`: every device-to-host read of the query path,

@@ -627,7 +627,7 @@ class Site:
     site calls it, `plain` its plain version and `library` one PyTorch
     call computing the same function (None: there is none), all on the
     same inputs; `bytes` is what the function must move."""
-    kernel: str                        # "compact" | "grouped_aggregate"
+    kernel: str                # "compact" | "grouped_aggregate" | "strkey"
     call_site: str
     run: Callable
     plain: Callable
@@ -636,9 +636,11 @@ class Site:
 
     def measure(self) -> dict:
         from arrow_tpu_torch.kernels import compact as kc, groupagg as kg
-        name, wrapper = ("compact_kernel", kc.compact) \
-            if self.kernel == "compact" \
-            else ("groupagg_kernel", kg.grouped_aggregate)
+        from arrow_tpu_torch.kernels import strkey as ks
+        name, wrapper = {
+            "compact": ("compact_kernel", kc.compact),
+            "grouped_aggregate": ("groupagg_kernel", kg.grouped_aggregate),
+            "strkey": ("strkey_kernel", ks.strkey)}[self.kernel]
         out = {"name": self.kernel, "call_site": self.call_site,
                "ms": time_ms(self.run),
                "kernel_ms": kernel_ms(self.run, name, wrapper),
@@ -671,6 +673,28 @@ def _compact_site(call_site, keep, arrays, cap, library,
                                    positions=positions),
                 lambda: kc.compact_plain(keep, arrays, full, positions),
                 library, moved)
+
+
+def _strkey_site(call_site: str, call) -> Site:
+    """K3 at the inputs a watched strkey call was given: key k of every
+    row, or of the row list's rows in its order.  The least bytes: the
+    offsets (two a row through a row list, the whole array at most) and
+    the row list read once, each row's bytes from 7k on (at most 7), the
+    int64 keys written."""
+    from arrow_tpu_torch.kernels import strkey as ks
+    offsets, data, k, rows = call[0]
+    lens = (offsets[1:] - offsets[:-1]).to(torch.int64)
+    n = lens.shape[0] if rows is None else rows.shape[0]
+    if rows is not None:
+        lens = lens[rows]
+    read = nbytes(offsets) if rows is None else min(
+        nbytes(offsets), 2 * n * offsets.element_size()) + nbytes(rows)
+    moved = read + int((lens - ks.BYTES * k).clamp(0, ks.BYTES).sum()) \
+        + 8 * n
+    return Site("strkey", call_site,
+                lambda: ks.strkey(offsets, data, k, rows),
+                lambda: ks.strkey_plain(offsets, data, k, rows),
+                None, moved)
 
 
 def k1_config1(dev) -> Site:
@@ -1962,14 +1986,18 @@ def p25_compute_calls(i32, ts, dcol, dv, m2, m3):
     ]
 
 
+P25_TAIL = 4096                    # bytes of phase 25's long-tail value
+
+
 def run_phase25(dev, profile: bool) -> list:
     """Phase 25: config 2's dictionary decoded to device strings, encoded
-    back, grouped by and filtered; config 5's index-plan join carrying a
+    back (K3 against its plain version at the encode's first key and its
+    last, through the row list), grouped by and filtered; config 5's index-plan join carrying a
     string column; the new elementwise functions against the CPU
     route."""
     from arrow_tpu_torch import dtypes as dt
     from arrow_tpu_torch.core.column import (DictionaryColumn,
-                                             PrimitiveColumn)
+                                             PrimitiveColumn, StringColumn)
     from arrow_tpu_torch.core.datum import Scalar
     from arrow_tpu_torch.core.table import Table
     from arrow_tpu_torch.ops.boolean import and_kleene, or_kleene
@@ -1980,6 +2008,8 @@ def run_phase25(dev, profile: bool) -> list:
     from arrow_tpu_torch.ops.join import join
     from arrow_tpu_torch.ops.strings import (dictionary_decode,
                                              dictionary_encode)
+    from arrow_tpu_torch.kernels import strkey as ks
+    from arrow_tpu_torch.utils import trace
     n = CONFIG2_ROWS
     host, (i32, ts, dcol) = config2_inputs(n, dev)
     i32_np, valid_np, ts_np, codes_np = host
@@ -1991,13 +2021,66 @@ def run_phase25(dev, profile: bool) -> list:
     torch.cuda.synchronize()
     _same_strings(s, codes, f"{what}: dictionary_decode")
     times["dictionary_decode"] = time_ms(lambda: dictionary_decode(dcol))
-    enc = dictionary_encode(s)
+    torch.cuda.synchronize()
+    ks.strkey.launches = 0
+    trace.reset_spans()
+    with watch("strkey", "strings") as k3_calls, trace.recording():
+        enc = dictionary_encode(s)
+    torch.cuda.synchronize()
+    k3_launches = ks.strkey.launches
+    (encode,) = [x for x in trace.spans() if x.name == "strings.encode"]
+    trace.reset_spans()
     if enc.values.to_pylist() != config2_words() or \
             not torch.equal(enc.codes, codes) or enc.validity is not None:
         raise AssertionError(f"{what}: dictionary_encode differs from the "
                              f"words and their indices")
+    passes = encode.attrs["passes"]
+    if not k3_launches == len(k3_calls) == passes >= 2 \
+            or k3_calls[-1][0][3] is None:
+        raise AssertionError(f"{what}: dictionary_encode launched K3 "
+                             f"{k3_launches} times for {passes} passes")
     times["dictionary_encode"] = time_ms(lambda: dictionary_encode(s), 3)
     del enc
+    # a long tail: the same rows, a value of P25_TAIL bytes twice and its
+    # prefix one byte shorter, which sort last; the rows of 9 bytes finish
+    # after two passes and drop out, the three run on alone
+    ends = s.offsets[-1] + torch.tensor([P25_TAIL, 2 * P25_TAIL,
+                                         3 * P25_TAIL - 1], device=dev,
+                                        dtype=s.offsets.dtype)
+    long_col = StringColumn(torch.cat([s.offsets, ends]), torch.cat([
+        s.data, torch.full((3 * P25_TAIL - 1,), ord("x"), dtype=torch.uint8,
+                           device=dev)]), dt.utf8)
+    trace.reset_spans()
+    with trace.recording():
+        enc = dictionary_encode(long_col)
+    torch.cuda.synchronize()
+    (encode,) = [x for x in trace.spans() if x.name == "strings.encode"]
+    reads = sum(x.name == "readback" for x in trace.spans())
+    trace.reset_spans()
+    if enc.values.to_pylist() != config2_words() + [
+            "x" * (P25_TAIL - 1), "x" * P25_TAIL] or \
+            not torch.equal(enc.codes[:n], codes) or \
+            enc.codes[n:].tolist() != [1001, 1001, 1000]:
+        raise AssertionError(f"{what}: dictionary_encode of the long tail "
+                             f"differs from the words and their indices")
+    tail_passes = encode.attrs["passes"]
+    times["dictionary_encode (long tail)"] = time_ms(
+        lambda: dictionary_encode(long_col), 3)
+    del enc, long_col, ends
+    print(f"{what}: dictionary_encode of the rows and three of up to "
+          f"{P25_TAIL:,} bytes equal to the words and codes: {tail_passes} "
+          f"passes, {reads} readbacks, "
+          f"{times['dictionary_encode (long tail)']:.4f} ms", flush=True)
+    entries = []
+    for call, how in ((k3_calls[0], "in row order"),
+                      (k3_calls[-1], "through the row list")):
+        site = _strkey_site(f"phase 25 dictionary_encode, {n:,} rows of "
+                            f"9 bytes, key {call[0][2]} of {passes} "
+                            f"{how}", call)
+        err = check_site(site, _same_bits, f"K3 at {site.call_site}")
+        entries.append(_entry(site, k3_launches, err))
+        del site
+    del k3_calls, call
     if profile:
         profile_call(f"{what} dictionary_decode",
                      lambda: dictionary_decode(dcol))
@@ -2005,8 +2088,9 @@ def run_phase25(dev, profile: bool) -> list:
                      lambda: dictionary_encode(s))
     print(f"{what}: dictionary_decode to {s.data.numel():,} bytes on the "
           f"card and dictionary_encode back equal the words and codes; "
-          f"decode {times['dictionary_decode']:.4f} ms, encode (host "
-          f"interning) {times['dictionary_encode']:.4f} ms", flush=True)
+          f"decode {times['dictionary_decode']:.4f} ms, encode (K3 and "
+          f"sort refinement, {passes} passes, {k3_launches} K3 launches) "
+          f"{times['dictionary_encode']:.4f} ms", flush=True)
 
     # group-by on the Utf8 key
     table = Table([s, i32], dt.Schema((dt.Field("s", dt.utf8, False),
@@ -2037,7 +2121,6 @@ def run_phase25(dev, profile: bool) -> list:
     print(f"{what}: group_by on the utf8 key equal to bincount / index_add_ "
           f"over the codes; {times['group_by (utf8 key)']:.4f} ms",
           flush=True)
-    entries = []
     site = _k2_site(f"phase 25 utf8-key group_by (dictionary plan), "
                     f"{n:,} rows x {k2_calls[0][0][1]:,} codes", k2_calls[0])
     del k2_calls
@@ -5022,8 +5105,11 @@ P32_NEEDS = {"lineitem": ["l_orderkey", "l_quantity", "l_extendedprice",
 # reference's _agg_supported), so K2 runs under SQL at Q4's COUNT(*)
 P32_MUST = {"Q1": "compact", "Q3": "compact", "Q4": "grouped_aggregate",
             "Q6": "compact", "Q10": "compact"}
+# the modules whose K1 calls an SQL query makes: Q10's string keys are
+# encoded on the card, and the encode drops finished rows and finds the
+# values' first rows with K1
 K1_SQL = (("compact", "filter"), ("compact", "groupby"), ("compact", "join"),
-          ("compact", "sort"))
+          ("compact", "sort"), ("compact", "strings"))
 
 
 def p32_calls(tabs: dict, dev, meter, cpu_rows: int = P32_CPU_ROWS):
@@ -5058,10 +5144,11 @@ def p32_calls(tabs: dict, dev, meter, cpu_rows: int = P32_CPU_ROWS):
         _rows_close(got, p32_pyarrow(name, pat), P32_FLOATS,
                     f"{what}: {name} against pyarrow")
         answers[name] = got
-        filt, grp, join, _ = calls[:len(K1_SQL)]
+        filt, grp, join, _, enc = calls[:len(K1_SQL)]
         print(f"{what}: {name} {len(got)} rows equal to pyarrow's; "
               f"launches {launches}; K1 calls: filter {len(filt)}, "
-              f"group_by {len(grp)}, join {len(join)}; K2 calls {len(k2)}; "
+              f"group_by {len(grp)}, join {len(join)}, string encodes "
+              f"{len(enc)}; K2 calls {len(k2)}; "
               f"first row "
               f"{got[0] if got else None}", flush=True)
         if name == "Q6":
@@ -5074,7 +5161,7 @@ def p32_calls(tabs: dict, dev, meter, cpu_rows: int = P32_CPU_ROWS):
         elif name == "Q4":
             sites["Q4 group_by"] = (k2, launches)
         # the recorded calls hold the joins' inputs: only the sites' stay
-        del out, calls, k1, k2, filt, grp, join
+        del out, calls, k1, k2, filt, grp, join, enc
         meter.timed(name, run)
     part = {"lineitem": tabs["lineitem"].slice(0, min(
         cpu_rows, tabs["lineitem"].num_rows))}
@@ -6142,6 +6229,9 @@ def main(argv=None) -> int:
         "grouped_aggregate": {"route": "cuda",
                               "source": "arrow_tpu_torch/csrc/groupagg.cu",
                               "replaces": "arrow_tpu/kernels/groupagg.py:38"},
+        "strkey": {"route": "cuda", "source": "arrow_tpu_torch/csrc/strkey.cu",
+                   "replaces": "none: arrow_tpu/ops/strings.py "
+                               "dictionary_encode interns on the host"},
     }
     kernels = [{**e, **sources[e["name"]]} for e in entries]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)

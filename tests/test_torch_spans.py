@@ -204,6 +204,27 @@ def test_group_by_names_its_plan(plan):
                                                       {"rows": n})]
 
 
+def test_string_key_encode_is_a_span_under_the_group_by():
+    """A string key's dictionary encode is a `strings.encode` span inside
+    the operator that asked for it; a CPU column takes the host route,
+    with no refinement passes, and a dictionary passes through
+    unrecorded."""
+    from arrow_tpu_torch.ops.strings import dictionary_encode
+    t = att.Table([att.column(["b", "a", None, "b"], device="cpu"),
+                   att.column(np.arange(4), device="cpu")],
+                  pdt.Schema((pdt.Field("k", pdt.utf8),
+                              pdt.Field("v", pdt.int64))))
+    _, spans = _recorded(lambda: group_by(t, ["k"], [AggSpec("v", "sum")]))
+    (op,) = [s for s in spans if s.name == "op.group_by"]
+    (enc,) = [s for s in spans if s.name == "strings.encode"]
+    assert enc.parent == op.id
+    assert enc.attrs == {"rows": 4, "distinct": 3, "passes": 0}
+    dcol = dictionary_encode(t.column("k"))
+    trace.reset_spans()
+    _, spans = _recorded(lambda: dictionary_encode(dcol))
+    assert spans == []
+
+
 JOIN_RIGHT = {
     "index": np.array([1, 2, 3, 4], np.int64),            # unique keys
     "packed merge": np.array([1, 2, 2, 4], np.int64),     # a repeated key

@@ -261,6 +261,183 @@ def test_dictionary_encode_of_empty_and_all_null_columns():
         same_buffers(got.values, want.values)
 
 
+# ---- the device route of dictionary_encode (sort refinement, K3) -----------
+
+TEXT = np.frombuffer(b"furiously regular deposits sleep carefully among the "
+                     b"final pinto beans. quickly ironic accounts wake "
+                     b"blithely express, even requests haggle slyly; "
+                     b"bold packages nag ", np.uint8)
+
+
+def _rows(chunks, valid=None):
+    """(int64 offsets, bytes, validity) of a list of bytes."""
+    offs = np.zeros(len(chunks) + 1, np.int64)
+    np.cumsum([len(c) for c in chunks], out=offs[1:])
+    return offs, np.frombuffer(b"".join(chunks), np.uint8), valid
+
+
+def _tpch_text(seed: int):
+    """20,000 rows drawn like Q10's c_address (10-40 bytes) and c_comment
+    (29-116) after its joins: text cut from a pool at random offsets,
+    each of 7,000 customers' rows repeated."""
+    rng = np.random.default_rng(seed)
+    pool = TEXT[rng.integers(0, len(TEXT), 1 << 14)].tobytes()
+    lens = np.where(rng.random(7_000) < 0.5, rng.integers(10, 41, 7_000),
+                    rng.integers(29, 117, 7_000))
+    starts = rng.integers(0, len(pool) - 116, 7_000)
+    uniq = [pool[a:a + n] for a, n in zip(starts, lens)]
+    return _rows([uniq[i] for i in rng.integers(0, 7_000, 20_000)])
+
+
+def _long_tail(seed: int):
+    """3,000 short rows (0-20 bytes, repeated) and a tail: one value of
+    1,000 bytes, a copy of it, and its prefixes of 999, 994, 500 and 64
+    bytes, so rows finish at many passes and a few run on alone."""
+    rng = np.random.default_rng(seed)
+    long = rng.integers(0, 256, 1000, np.uint8).tobytes()
+    short = [rng.integers(0, 256, n, np.uint8).tobytes()
+             for n in rng.integers(0, 21, 900)]
+    tail = [long, long, long[:999], long[:994], long[:500], long[:64]]
+    return _rows([short[i] for i in rng.integers(0, 900, 3_000)] + tail)
+
+
+def _early_end(seed: int):
+    """2,000 short rows (0-20 bytes, repeated) and one value of 1,000
+    bytes found nowhere else: every row finishes long before the longest
+    row's last pass, so the encode stops early."""
+    rng = np.random.default_rng(seed)
+    short = [rng.integers(0, 256, n, np.uint8).tobytes()
+             for n in rng.integers(0, 21, 600)]
+    return _rows([short[i] for i in rng.integers(0, 600, 2_000)]
+                 + [rng.integers(0, 256, 1000, np.uint8).tobytes()])
+
+
+ENCODE_CASES = {
+    "zero_rows": lambda: _rows([]),
+    "one_row": lambda: _rows([b"word"]),
+    "all_equal": lambda: _rows([b"same value"] * 50),
+    "empty_string": lambda: _rows([b"", b"a", b"", b"\x00", b""]),
+    "prefix_across_words": lambda: _rows(
+        [b"abcdefghi", b"abcdefgh\x00", b"abcdefgh", b"abcdefgh", b"abcdefg",
+         b"abcdefgh\x00\x00", b"abcdefghabcdefgh", b"abcdefghabcdefgh\x00",
+         b"abcdefghabcdefg", b"abcdef", b"abcdefg\x00", b"abcdefgabcdefg",
+         b"abcdefgabcdefg\x00", b"abcdefgabcdef"]),
+    "high_bytes": lambda: _rows([bytes([b]) for b in range(255, -1, -1)]
+                                + [b"\x7f\xff", b"\x80", b"\x80\x00",
+                                   b"\xff" * 9, b"\xff" * 8, b"\xff" * 7]),
+    "lengths_0_130": lambda: _rows(
+        [np.random.default_rng(n).integers(0, 256, n, np.uint8).tobytes()
+         for n in range(131)] * 2),
+    "nulls_with_and_without_bytes": lambda: _rows(
+        [b"kept", b"", b"hidden", b"kept", b"hidden", b"", b"x"],
+        np.array([True, False, False, True, True, True, False])),
+    "tpch_text": lambda: _tpch_text(19),
+    "long_tail": lambda: _long_tail(23),
+    "early_end": lambda: _early_end(29),
+}
+
+
+def _encode_case(case, layout, device="cpu"):
+    """The case as a reference column (int32 offsets, int64 under a large
+    layout) and as the port's column on `device`, and its longest row."""
+    offs, data, valid = ENCODE_CASES[case]()
+    wide = layout.startswith("large")
+    ref = at.StringColumn(jnp.asarray(offs.astype(np.int64 if wide
+                                                  else np.int32)),
+                          jnp.asarray(data), getattr(rdt, layout),
+                          None if valid is None else jnp.asarray(valid))
+    return ref, port_column(ref, device), int(np.diff(offs).max(initial=0))
+
+
+def _same_encoding(got, want, col) -> None:
+    """Codes (int32, the value's rank under a null row too), values,
+    validity and type of an encode bitwise equal to the reference's."""
+    assert got.codes.dtype == torch.int32
+    np.testing.assert_array_equal(got.codes.cpu().numpy(),
+                                  np.asarray(want.codes))
+    # the type and the masks as assert_columns_equal holds them; the rows
+    # by their buffers (to_pylist cannot decode the cases' non-UTF-8 text)
+    assert repr(got.dtype) == repr(want.dtype)
+    assert bool(got.dtype.ordered) == bool(want.dtype.ordered)
+    assert (got.validity is None) == (want.validity is None)
+    if got.validity is not None:
+        np.testing.assert_array_equal(got.validity.cpu().numpy(),
+                                      np.asarray(want.validity))
+    same_buffers(got.values, want.values)
+    # the layout's offsets (the reference keeps int32 under a large one)
+    assert got.values.offsets.dtype == col.offsets.dtype
+    assert got.values.dtype == col.dtype and got.validity is col.validity
+    u = len(want.values)
+    np.testing.assert_array_equal(got.values._value_ranks[0],
+                                  np.arange(u, dtype=np.uint64))
+    assert not got.values._value_ranks[1].any()
+
+
+@pytest.mark.parametrize("case", sorted(ENCODE_CASES))
+@pytest.mark.parametrize("layout", ["utf8", "large_utf8", "binary",
+                                    "large_binary"])
+def test_device_route_of_dictionary_encode_equals_the_host_route(case,
+                                                                 layout):
+    """The route a CUDA column takes (K3's keys, the stable sorts, the
+    refinement, K1's drops of finished rows and run starts, here on
+    their plain versions) and the host route both give the reference's
+    codes, values and validity bit for bit, null rows' bytes ranked with
+    the rest; the device route runs at most one pass a 7 bytes of the
+    longest row."""
+    from arrow_tpu_torch.kernels.strkey import BYTES
+    ref, col, longest = _encode_case(case, layout)
+    want = rstr.dictionary_encode(ref, ordered=True)
+    got, passes = ps._encode_on_device(col, torch.int32, True)
+    assert passes <= -(-longest // BYTES)
+    if case == "early_end":
+        assert passes < 8
+    _same_encoding(got, want, col)
+    _same_encoding(ps._encode_on_host(col, torch.int32, True), want, col)
+
+
+def _python_words(chunks, k, rows):
+    """Key k of each asked row, by the definition: the 7 bytes from 7k,
+    zero-padded, big-endian, times 16, plus the bytes left from 7k on
+    (0 to 7, 8 for more)."""
+    out = []
+    for r in rows:
+        w = (chunks[r][7 * k:7 * k + 7] + bytes(7))[:7]
+        left = min(max(len(chunks[r]) - 7 * k, 0), 8)
+        out.append(int.from_bytes(w, "big") * 16 + left)
+    return out
+
+
+@pytest.mark.parametrize("off_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("with_rows", [False, True])
+def test_strkey_plain_gives_the_words(rng, off_dtype, with_rows):
+    """K3's plain version: each row's key k as the definition gives it,
+    for sliced offsets (not starting at 0) and a row list."""
+    from arrow_tpu_torch.kernels.strkey import strkey
+    chunks = [rng.integers(0, 256, n, np.uint8).tobytes()
+              for n in rng.integers(0, 30, 200)]
+    offs, data, _ = _rows([b"skipped"] + chunks)
+    offsets = torch.from_numpy(offs[1:]).to(off_dtype)
+    rows = rng.permutation(200)[:150] if with_rows else np.arange(200)
+    for k in range(6):
+        got = strkey(offsets, torch.from_numpy(data.copy()), k,
+                     torch.from_numpy(rows) if with_rows else None)
+        assert got.dtype == torch.int64
+        assert got.tolist() == _python_words(chunks, k, rows)
+
+
+def test_strkey_rejects_bad_arguments():
+    from arrow_tpu_torch.errors import ArrowInvalid
+    from arrow_tpu_torch.kernels.strkey import strkey
+    offs = torch.tensor([0, 2], dtype=torch.int32)
+    data = torch.zeros(2, dtype=torch.uint8)
+    rows32 = torch.zeros(1, dtype=torch.int32)
+    for args in ((offs.to(torch.int16), data, 0),
+                 (offs, data.to(torch.int8), 0), (offs, data, -1),
+                 (offs, data, 0, rows32)):
+        with pytest.raises(ArrowInvalid):
+            strkey(*args)
+
+
 def test_dictionary_decode_matches_reference(rng, route):
     ref = rstr.dictionary_encode(string_column(rng))
     got = ps.dictionary_decode(port_column(ref))
@@ -543,6 +720,72 @@ def test_join_carries_string_columns(rng, route, how, key):
 
 def _to(col, device):
     return port_column(col, device)
+
+
+@pytest.mark.parametrize("off_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [0, 1, 1000, 300_001])
+def test_strkey_kernel_matches_plain_on_cuda(cuda_device, off_dtype, n):
+    """K3 against its plain version: every word of rows of 0-40 bytes
+    (offsets not starting at 0), in row order and through a row list."""
+    from arrow_tpu_torch.kernels import strkey as ks
+    g = np.random.default_rng(n)
+    lens = g.integers(0, 41, n)
+    offs = np.concatenate([[5], 5 + np.cumsum(lens)]).astype(np.int64)
+    data = torch.from_numpy(g.integers(0, 256, int(offs[-1]) + 3, np.uint8))
+    offsets = torch.from_numpy(offs).to(off_dtype)
+    rows = torch.from_numpy(g.permutation(n)).to(torch.int64)
+    for r in (None, rows, rows[: n // 2]):
+        for k in range(6):
+            before = ks.strkey.launches
+            got = ks.strkey(offsets.to(cuda_device), data.to(cuda_device),
+                            k, None if r is None else r.to(cuda_device))
+            torch.cuda.synchronize()
+            assert ks.strkey.launches == before + 1
+            want = ks.strkey_plain(offsets, data, k, r)
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["tpch_text", "lengths_0_130",
+                                  "nulls_with_and_without_bytes",
+                                  "prefix_across_words", "zero_rows",
+                                  "long_tail", "early_end", "high_bytes"])
+@pytest.mark.parametrize("layout", ["utf8", "large_utf8", "binary"])
+def test_dictionary_encode_on_cuda_equals_the_host_route(cuda_device, case,
+                                                         layout):
+    """dictionary_encode of a CUDA column ranks it on the card: the
+    reference's codes and values bit for bit, as the host route gives
+    them; one K3 launch a pass; a `strings.encode` span; and only scalar
+    readbacks (the longest row, the rows left after each drop of finished
+    rows, the distinct count with the values' bytes): none of the
+    column's bytes or offsets reach the host."""
+    from arrow_tpu_torch.kernels import strkey as ks
+    from arrow_tpu_torch.utils import trace
+    ref, gpu, longest = _encode_case(case, layout, cuda_device)
+    want = rstr.dictionary_encode(ref)
+    cpu = port_column(ref)
+    _same_encoding(ps.dictionary_encode(cpu), want, cpu)
+    before = ks.strkey.launches
+    trace.reset_spans()
+    with trace.recording():
+        got = ps.dictionary_encode(gpu)
+        torch.cuda.synchronize()
+    spans = trace.spans()
+    trace.reset_spans()
+    (enc,) = [s for s in spans if s.name == "strings.encode"]
+    most = -(-longest // ks.BYTES)
+    passes = enc.attrs["passes"]
+    assert passes <= most
+    assert enc.attrs == {"rows": len(gpu), "distinct": len(want.values),
+                         "passes": passes}
+    assert ks.strkey.launches == before + passes
+    reads = [s.attrs["site"] for s in spans if s.name == "readback"]
+    drops = [d for d in (1 << i for i in range(12))
+             if d <= passes and 2 * d <= most]
+    assert reads == ["strings.maxlen"] * bool(len(gpu)) \
+        + ["strings.rows_left"] * len(drops) + ["strings.distinct"]
+    assert all(s.attrs["bytes"] <= 16 for s in spans if s.name == "readback")
+    assert got.codes.device == gpu.device
+    _same_encoding(got, want, gpu)
 
 
 def test_cuda_strings_match_the_cpu_route(cuda_device, rng):
