@@ -45,6 +45,7 @@ from ..errors import ArrowInvalid
 from .. import dtypes as dt
 from . import ipc_format as fmt
 from .hostio import to_host
+from ..utils import trace
 from .ipc import _table_dict_columns
 from . import pb
 
@@ -215,19 +216,35 @@ def encode_flight_stream(tables, descriptor: Optional[FlightDescriptor]
     each input table is encoded and yielded before the next is pulled.
     `schema` lets an EMPTY stream still emit its schema message (a
     Flight stream must start with one).  Each table comes to the host
-    once; its pieces are cut and encoded there."""
+    once, each buffer a `readback` of site `flight.encode`; its pieces
+    are cut and encoded there.  The whole stream is one `flight.encode`
+    span (`rows`, `messages`, `bytes` sent)."""
     if isinstance(tables, Table):
         tables = [tables]
-    it = iter(tables)
+    with trace.span("flight.encode") as s:
+        sent = {"rows": 0, "messages": 0, "bytes": 0}
+        for msg in _encode_stream(iter(tables), descriptor, schema, sent):
+            yield msg
+        if s is not None:
+            s.attrs.update(sent)
+
+
+def _encode_stream(it, descriptor, schema, sent: dict) -> Iterator[bytes]:
+    """encode_flight_stream's messages, counted into `sent`."""
     first = None
     if schema is None:
         first = next(it, None)
         if first is None:
             return
         schema = first.schema
-    yield _flight_data(
-        data_header=fmt.write_schema_message(schema),
-        descriptor=descriptor)
+
+    def message(meta, body=b"", desc=None):
+        out = _flight_data(meta, body, desc)
+        sent["messages"] += 1
+        sent["bytes"] += len(out)
+        return out
+
+    yield message(fmt.write_schema_message(schema), desc=descriptor)
 
     def _stream():
         if first is not None:
@@ -240,19 +257,18 @@ def encode_flight_stream(tables, descriptor: Optional[FlightDescriptor]
     written: Dict[int, Column] = {}
     for t in _stream():
         sent_as = [c.values for c in _table_dict_columns(t)]
-        for part in _split_tables(to_host(t)):
+        sent["rows"] += t.num_rows
+        for part in _split_tables(to_host(t, site="flight.encode")):
             # innermost dictionaries first (reversed preorder) so nested
             # dictionary values decode before their parents
             for dict_id, col in reversed(
                     list(enumerate(_table_dict_columns(part)))):
                 if written.get(dict_id) is sent_as[dict_id]:
                     continue
-                meta, body = fmt.encode_dictionary_batch(dict_id,
-                                                         col.values)
-                yield _flight_data(meta, body)
+                yield message(*fmt.encode_dictionary_batch(dict_id,
+                                                           col.values))
                 written[dict_id] = sent_as[dict_id]
-            meta, body = fmt.encode_record_batch(part)
-            yield _flight_data(meta, body)
+            yield message(*fmt.encode_record_batch(part))
 
 
 class FlightStreamDecoder:

@@ -22,6 +22,8 @@ server: ROADMAP C7.2).
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import threading
 import uuid as _uuid
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -31,12 +33,13 @@ import torch
 
 from ..core.table import Table
 from ..errors import ArrowInvalid, ArrowNotImplementedError
+from ..utils import trace
 from .flight import (FlightDescriptor, FlightInfo, FlightServer,
                      FlightTableClient, DESCRIPTOR_CMD, _concat,
                      _empty_table, schema_ipc_bytes)
 
-__all__ = ["FlightSQLServer", "FlightSQLClient", "simple_sql_executor",
-           "simple_sql_update_executor", "dt_schema"]
+__all__ = ["FlightSQLServer", "FlightSQLClient", "StatementGate",
+           "simple_sql_executor", "simple_sql_update_executor", "dt_schema"]
 
 
 def dt_schema(names, cols):
@@ -529,6 +532,89 @@ def simple_sql_update_executor(tables: Dict[str, Table], query: str, *,
     return execute_sql_update(tables, query, device=device)
 
 
+# ---- the statement gate ----------------------------------------------------------
+
+class StatementGate:
+    """The one gate every statement a FlightSQL handler executes passes,
+    so that statements share one card without failing for its memory.
+
+    Statements enter together (shared).  One that raises
+    `torch.cuda.OutOfMemoryError` has published nothing (a query returns
+    its table, DML applies its mutations only after its executor
+    returns), so it drops what it holds, waits until no other statement
+    runs, and runs again alone (exclusive); while it waits the gate
+    admits no new statement.  A statement that fails alone fails.  The
+    card's memory held only the statements that ran beside the failed
+    one, so from then on the gate lets at most that many run together:
+    the limit is learned from the failures, never set, and only falls.
+    The model is spark-rapids: its GPU semaphore (GpuSemaphore, a bound
+    on the tasks on one card) with retry-on-OOM (RmmRapidsRetryIterator:
+    the task's work released, then retried once the other tasks are
+    done).
+
+    Take the gate outside every server lock: a statement that waits here
+    while holding one could wait for a statement that needs it.
+
+    Recorded, a statement is a `flightsql.statement` span (`kind`,
+    `runs`: 1, or 2 after a re-run) and each wait a `server.admit` span
+    (`mode`: shared or exclusive, `limit`: 0 while there is none); the
+    counter `flightsql.reruns` counts the re-runs."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._cond = threading.Condition()
+        self._shared = 0            # statements running together
+        self._alone = False         # a statement running alone
+        self._waiting = 0           # statements waiting to run alone
+        self._limit = 0             # the most to run together (0: any)
+
+    @contextlib.contextmanager
+    def _admitted(self, alone: bool):
+        with trace.span("server.admit", limit=self._limit,
+                        mode="exclusive" if alone else "shared"):
+            with self._cond:
+                if alone:
+                    self._waiting += 1
+                    self._cond.wait_for(
+                        lambda: not self._alone and not self._shared)
+                    self._waiting -= 1
+                    self._alone = True
+                else:
+                    self._cond.wait_for(
+                        lambda: not self._alone and not self._waiting
+                        and (not self._limit or self._shared < self._limit))
+                    self._shared += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                if alone:
+                    self._alone = False
+                else:
+                    self._shared -= 1
+                self._cond.notify_all()
+
+    def run(self, kind: str, fn: Callable):
+        """`fn()` as one statement of `kind` (query, update, prepared)."""
+        with trace.span("flightsql.statement", kind=kind, runs=1) as s:
+            with self._admitted(False):
+                try:
+                    return fn()
+                except torch.cuda.OutOfMemoryError:
+                    # leaving the handler drops its frames
+                    with self._cond:
+                        if self._shared > 1:
+                            self._limit = min(self._limit or self._shared,
+                                              self._shared - 1)
+            if s is not None:
+                s.attrs["runs"] = 2
+            trace.count("flightsql.reruns")
+            with self._admitted(True):
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                return fn()
+
+
 # ---- server --------------------------------------------------------------------
 
 class FlightSQLServer(FlightServer):
@@ -540,6 +626,15 @@ class FlightSQLServer(FlightServer):
     (tables, query) -> Table and defaults to simple_sql_executor; the
     registered tables, what DML and ingest make and the metadata tables
     are on `device`.
+
+    Every query, prepared statement and DML statement passes `gate`
+    (StatementGate), so statements of concurrent handlers share the
+    card.  Each GetFlightInfo of a command runs it once and issues a
+    ticket of its own (the command with the server's issue number in
+    field 3 of the Any, which decoders skip), and DoGet of that ticket
+    returns exactly that call's result: two clients that send the same
+    text at once each read their own.  A ticket left unread holds its
+    result.
     """
 
     def __init__(self, location: str = "grpc://0.0.0.0:0", *,
@@ -561,7 +656,9 @@ class FlightSQLServer(FlightServer):
         # concurrent CommandStatementUpdates could both snapshot, both
         # mutate, and one write would silently win (lost update)
         self._update_lock = threading.Lock()
-        self._results: Dict[bytes, Table] = {}   # get_flight_info cache
+        self._results: Dict[bytes, Table] = {}   # ticket -> its result
+        self._issued = itertools.count(1)         # a ticket's number
+        self.gate = StatementGate(self.device)
         self._cancelled: set = set()   # cancelled, until issued anew
         self._temp_tables: set = set()
         self.sql_info = default_sql_info()
@@ -600,12 +697,17 @@ class FlightSQLServer(FlightServer):
         return rows
 
     # -- command plumbing ------------------------------------------------
-    def _run(self, query: str) -> Table:
-        return self._executor(dict(self._tables), query)
+    def _run(self, query: str, kind: str = "query") -> Table:
+        return self.gate.run(
+            kind, lambda: self._executor(dict(self._tables), query))
 
-    def _run_update(self, query: str) -> int:
+    def _run_update(self, query: str, kind: str = "update") -> int:
         """Execute DML and apply its table mutations atomically (one
-        writer at a time; readers stay lock-free on the registry)."""
+        writer at a time; readers stay lock-free on the registry), as
+        one statement at the gate, which is taken before the lock."""
+        return self.gate.run(kind, lambda: self._apply_update(query))
+
+    def _apply_update(self, query: str) -> int:
         with self._update_lock:
             with self._lock:
                 snapshot = dict(self._tables)
@@ -644,7 +746,7 @@ class FlightSQLServer(FlightServer):
         if name == "CommandStatementQuery":
             return self._run(f[1][0].decode())
         if name == "CommandPreparedStatementQuery":
-            return self._run(self._bound_query(f[1][0]))
+            return self._run(self._bound_query(f[1][0]), "prepared")
         if name == "CommandGetCatalogs":
             return Table.from_pydict({"catalog_name": ["default"]},
                                      device=self.device)
@@ -736,8 +838,8 @@ class FlightSQLServer(FlightServer):
             pf = _parse_fields(f.get(1, [b""])[0])
             plan = pf.get(1, [b""])[0]
             version = pf.get(2, [b""])[0].decode() if 2 in pf else ""
-            return self._substrait_executor(dict(self._tables), plan,
-                                            version)
+            return self.gate.run("query", lambda: self._substrait_executor(
+                dict(self._tables), plan, version))
         if name == "CommandGetXdbcTypeInfo":
             rows = _XDBC_TYPES
             if 1 in f:
@@ -753,29 +855,33 @@ class FlightSQLServer(FlightServer):
     # -- Flight hook overrides (native FlightServer surface) ---------------
     def get_flight_info(self, descriptor: FlightDescriptor) -> FlightInfo:
         if descriptor.type == DESCRIPTOR_CMD:
-            table = self._table_for_cmd(descriptor.cmd)
-            # cache for the ticket fetch: execute() would otherwise run
-            # the full query TWICE (FlightInfo then DoGet).  A ticket
-            # issued anew is a new query: an earlier cancel of the same
-            # command no longer applies (ROADMAP C7.2)
+            cmd = descriptor.cmd
+            table = self._table_for_cmd(cmd)
+            # held for this call's ticket: execute() would otherwise run
+            # the full query TWICE (FlightInfo then DoGet).  The command
+            # issued anew is a new query: an earlier cancel of one of
+            # its tickets no longer applies (ROADMAP C7.2)
             with self._plock:
-                self._results[descriptor.cmd] = table
-                self._cancelled.discard(descriptor.cmd)
+                ticket = cmd + _varint_field(3, next(self._issued))
+                self._results[ticket] = table
+                self._cancelled = {t for t in self._cancelled
+                                   if not t.startswith(cmd)}
             return FlightInfo(schema_ipc_bytes(table.schema), descriptor,
-                              [(descriptor.cmd, [self.uri])],
-                              table.num_rows, -1)
+                              [(ticket, [self.uri])], table.num_rows, -1)
         return super().get_flight_info(descriptor)
 
     def do_get(self, ticket: bytes):
+        """A FlightSQL ticket's one table, its statement run before the
+        stream is encoded (so the statement's span is a root), or the
+        plain Flight stream of a dataset's name."""
         if ticket.startswith(b"\n") and _TYPE_PREFIX.encode() in ticket:
             with self._plock:
                 if ticket in self._cancelled:
                     raise KeyError("query was cancelled")
                 cached = self._results.pop(ticket, None)
-            yield cached if cached is not None \
-                else self._table_for_cmd(ticket)
-            return
-        yield from super().do_get(ticket)
+            return [cached if cached is not None
+                    else self._table_for_cmd(ticket)]
+        return super().do_get(ticket)
 
     def do_put(self, descriptor, tables, schema=None):
         """FlightSQL DML surface (sql/server.rs:399,410
@@ -810,9 +916,9 @@ class FlightSQLServer(FlightServer):
                 for row in zip(*(c.to_pylist()
                                  for c in params.columns)):
                     total += self._run_update(
-                        bind_sql_params(q, list(row)))
+                        bind_sql_params(q, list(row)), "prepared")
                 return _do_put_update_result(total)
-            return _do_put_update_result(self._run_update(q))
+            return _do_put_update_result(self._run_update(q, "prepared"))
         if name == "CommandPreparedStatementQuery":
             # parameter binding for a later do_get: store the row batch
             # and return DoPutPreparedStatementResult{handle=1}

@@ -3,10 +3,12 @@
 The codecs of io/ (C Data Interface, IPC, Parquet) work on numpy
 buffers on the host.  Everything crosses here, once each way:
 
-  - `to_host(x)`: a column or table with every tensor on the CPU (a
-    dictionary's values too): one device-to-host copy per buffer, none
-    when it is there already.  Writers take their host view through
+  - `to_host(x, site=None)`: a column or table with every tensor on the
+    CPU (a dictionary's values too): one device-to-host copy per buffer,
+    none when it is there already.  Writers take their host view through
     it once per batch, row group or export, and read that view only.
+    With a `site`, each copy is a `readback` of the query path
+    (utils/trace.py::to_host) under that name.
   - `tensor(a, device)`: a host buffer (often a read-only view of file
     bytes) as a tensor on `device`, always a copy, so no column aliases
     a file's or a producer's memory.
@@ -24,6 +26,7 @@ from __future__ import annotations
 import os
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,14 +47,14 @@ def tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _move(x, device: torch.device):
+def _move(x, copy):
     def move(t):
         if isinstance(t, DictionaryColumn):
             return DictionaryColumn(
-                t.codes.to(device), _move(t.values, device),
-                None if t.validity is None else t.validity.to(device),
+                copy(t.codes), _move(t.values, copy),
+                None if t.validity is None else copy(t.validity),
                 _canonical=True, ordered=bool(t.dtype.ordered))
-        return t.to(device) if isinstance(t, torch.Tensor) else t
+        return copy(t) if isinstance(t, torch.Tensor) else t
     return pytree.tree_map(move, x, is_leaf=_is_dict)
 
 
@@ -71,11 +74,17 @@ def _tensors(x):
             yield leaf
 
 
-def to_host(x):
-    """`x` (a column or table) with every tensor on the CPU."""
+def to_host(x, site: Optional[str] = None):
+    """`x` (a column or table) with every tensor on the CPU; with `site`,
+    each buffer is read through utils/trace.py::to_host, a `readback` of
+    that site while spans record (as the query path's reads are, on the
+    CPU too)."""
+    if site is not None:
+        from ..utils.trace import to_host as read
+        return _move(x, lambda t: read(site, t))
     cpu = torch.device("cpu")
     on_host = all(t.device == cpu for t in _tensors(x))
-    return x if on_host else _move(x, cpu)
+    return x if on_host else _move(x, lambda t: t.to(cpu))
 
 
 def host(t: torch.Tensor) -> np.ndarray:

@@ -398,9 +398,9 @@ def test_encode_copies_each_table_to_the_host_once(monkeypatch):
     calls = []
     real = pf.to_host
 
-    def counted(x):
+    def counted(x, **kw):
         calls.append(x)
-        return real(x)
+        return real(x, **kw)
     monkeypatch.setattr(pf, "to_host", counted)
     t = port_table(_dict_table(300_000))
     msgs = list(pf.encode_flight_stream([t, t.slice(0, 10)]))

@@ -256,3 +256,38 @@ def test_span_report_totals():
     assert lines[1].split() == ["op.join", "1", "10.00", "7.00", "0.000"]
     assert lines[2].split() == ["readback", "2", "3.00", "3.00", "4.000"]
     assert len(lines) == 3
+
+
+def test_a_served_statement_is_a_root():
+    """Over Flight SQL: the statement is the root on the handler's
+    thread, its wait at the gate and `sql.execute` beneath it; the
+    result's encode is a span of its own, each buffer's copy a
+    `readback` of site `flight.encode` beneath it."""
+    from arrow_tpu_torch.io.flightsql import FlightSQLClient, FlightSQLServer
+    server = FlightSQLServer("grpc://localhost:0", device="cpu")
+    for name, t in _tables().items():
+        server.register(name, t)
+    client = FlightSQLClient(server.uri, device="cpu")
+    try:
+        out, spans = _recorded(lambda: client.execute(QUERY))
+    finally:
+        client.close()
+        server.shutdown()
+    assert out.num_rows == 2
+    by_id = {s.id: s for s in spans}
+    st, = [s for s in spans if s.name == "flightsql.statement"]
+    assert st.parent is None and st.attrs == {"kind": "query", "runs": 1}
+    admit, = [s for s in spans if s.name == "server.admit"]
+    assert admit.parent == st.id
+    assert admit.attrs == {"mode": "shared", "limit": 0}
+    sql, = [s for s in spans if s.name == "sql.execute"]
+    assert sql.parent == st.id
+    assert all(s.root == st.id for s in spans if s.name.startswith("op."))
+    enc, = [s for s in spans if s.name == "flight.encode"]
+    assert enc.parent is None and enc.attrs["rows"] == 2
+    assert enc.attrs["messages"] == 2 and enc.attrs["bytes"] > 0
+    copies = [s for s in spans if s.name == "readback"
+              and s.attrs["site"] == "flight.encode"]
+    assert copies and all(by_id[s.parent] is enc for s in copies)
+    # every buffer of the 2 x 3 result: the key, the sum and the count
+    assert sum(s.attrs["bytes"] for s in copies) == 2 * 3 * 8
