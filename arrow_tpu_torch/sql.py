@@ -24,18 +24,20 @@ ABS/UPPER/LOWER/LENGTH/COALESCE, aggregates COUNT(*)/COUNT/SUM/MIN/
 MAX/AVG.
 
 A statement runs on the device of the tables it reads (tables on two
-devices raise): WHERE and HAVING filter through `filter_table` (the
-compaction kernel on a card), GROUP BY runs `group_by` (the grouped-
-aggregation kernel on the dictionary and small-domain plans, the
-compaction kernel at the sort plan's run starts), JOIN runs
-`ops.join.join`, ORDER BY `lexsort_to_indices` and `take_table`.  A
-literal used as a column is a fill of the table's row count on that
-device, of the dtype `column()` infers for it (int64, float64, bool,
-utf8 or null).
+devices raise) and reads only the columns it names: each table is cut to
+them before its joins and its WHERE (SELECT * reads every one).  WHERE
+and HAVING filter through `filter_table` (the compaction kernel on a
+card), GROUP BY runs `group_by` (the grouped-aggregation kernel on the
+dictionary and small-domain plans, the compaction kernel at the sort
+plan's run starts), JOIN runs `ops.join.join`, ORDER BY
+`lexsort_to_indices` and `take_table`.  A literal used as a column is a
+fill of the table's row count on that device, of the dtype `column()`
+infers for it (int64, float64, bool, utf8 or null).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -53,7 +55,7 @@ from .core.column import (Column, NullColumn, PrimitiveColumn, StringColumn,
 from .core.datum import scalar as make_scalar
 from .core.table import Table
 from .errors import ArrowInvalid
-from .utils.trace import span, to_host
+from .utils.trace import annotate, count, span, to_host
 
 __all__ = ["execute_sql", "execute_sql_update", "bind_sql_params"]
 
@@ -421,18 +423,8 @@ class _Evaluator:
 
     def colname(self, e: Col) -> str:
         """The resolved PHYSICAL column name for a (maybe qualified)
-        reference — aliases + join suffixes, same candidate order as
-        the colref() parser helper."""
-        cands = [e.name]
-        if e.table is not None:
-            tname = self.aliases.get(e.table, e.table)
-            cands = [f"{tname}.{e.name}", e.name]
-            # a joined right table's colliding columns carry a suffix —
-            # a qualified reference prefers the suffixed name
-            sfx = self.suffixes.get(tname)
-            if sfx:
-                cands.insert(0, f"{e.name}{sfx}")
-        for c in cands:
+        reference: the first of its `_candidates` the table has."""
+        for c in _candidates(e, self.aliases, self.suffixes):
             if c in self.t.column_names:
                 return c
         raise ArrowInvalid(f"no such column {e.name!r}")
@@ -608,6 +600,77 @@ def execute_sql(tables: Dict[str, Table], query: str) -> Table:
         return _select(tables, query)
 
 
+def _candidates(e: Col, aliases: Dict[str, str],
+                suffixes: Dict[str, str]) -> List[str]:
+    """The physical names a (maybe qualified) reference may resolve to,
+    in the order the resolvers try them: a joined right table's
+    colliding columns carry a suffix, which a qualified reference
+    prefers."""
+    if e.table is None:
+        return [e.name]
+    tname = aliases.get(e.table, e.table)
+    cands = [f"{tname}.{e.name}", e.name]
+    sfx = suffixes.get(tname)
+    if sfx:
+        cands.insert(0, f"{e.name}{sfx}")
+    return cands
+
+
+def _col_refs(e):
+    """Every column reference inside an expression tree (or a list of
+    them)."""
+    if isinstance(e, Col):
+        yield e
+    elif isinstance(e, (list, tuple)):
+        for x in e:
+            yield from _col_refs(x)
+    elif dataclasses.is_dataclass(e):
+        for f in dataclasses.fields(e):
+            yield from _col_refs(getattr(e, f.name))
+
+
+_SUFFIX = "_right"               # ops.join's name for a colliding right column
+
+
+@dataclass
+class _JoinStep:
+    how: str
+    rname: str
+    aliases: Dict[str, str]      # the aliases its ON clause sees
+    left: Col
+    right: Col
+
+
+def _named_columns(joins: List[_JoinStep], exprs,
+                   aliases: Dict[str, str]) -> set:
+    """Every physical name the statement's references may resolve to,
+    under the resolvers' candidate rules with the suffix of every joined
+    table, and the name each suffixed one comes from."""
+    every = {j.rname: _SUFFIX for j in joins}
+    names = set()
+    for j in joins:
+        for c in (j.left, j.right):
+            names.update(_candidates(c, j.aliases, every))
+    for c in _col_refs(exprs):
+        names.update(_candidates(c, aliases, every))
+    for n in list(names):
+        while n.endswith(_SUFFIX):
+            n = n[:-len(_SUFFIX)]
+            names.add(n)
+    return names
+
+
+def _prune(t: Table, names) -> Table:
+    """`t` with only its columns named in `names`, in their order: the
+    same column objects, no copy.  A table none of whose columns is named
+    keeps one, fixed-width where it has one, so its row count holds."""
+    keep = [i for i, n in enumerate(t.column_names) if n in names]
+    if not keep and t.columns:
+        keep = [next((i for i, c in enumerate(t.columns)
+                      if isinstance(c, PrimitiveColumn)), 0)]
+    return t if len(keep) == t.num_columns else t.select(keep)
+
+
 def _select(tables: Dict[str, Table], query: str) -> Table:
     p = _Parser(_tokenize(query))
     p.expect("kw", "select")
@@ -617,14 +680,13 @@ def _select(tables: Dict[str, Table], query: str) -> Table:
     tname = p.expect("id")[1]
     if tname not in tables:
         raise ArrowInvalid(f"no such table {tname!r}")
-    t = tables[tname]
-    read = [t]
+    read = [tname]
     aliases: Dict[str, str] = {}
-    suffixes: Dict[str, str] = {}
     if p.peek()[0] == "id":          # FROM t alias
         aliases[p.next()[1]] = tname
 
-    # JOIN
+    # JOIN: parsed here, run once the statement's names are known
+    joins: List[_JoinStep] = []
     while True:
         how = "inner"
         if p.accept("kw", "left"):
@@ -639,9 +701,8 @@ def _select(tables: Dict[str, Table], query: str) -> Table:
         rname = p.expect("id")[1]
         if rname not in tables:
             raise ArrowInvalid(f"no such table {rname!r}")
-        rt = tables[rname]
-        read.append(rt)
-        _device_of(read)
+        read.append(rname)
+        _device_of([tables[n] for n in read])
         if p.peek()[0] == "id" and p.peek()[1] != "on":
             aliases[p.next()[1]] = rname
         p.expect("kw", "on")
@@ -650,60 +711,17 @@ def _select(tables: Dict[str, Table], query: str) -> Table:
                 and isinstance(cond.left, Col)
                 and isinstance(cond.right, Col)):
             raise ArrowInvalid("JOIN ON must be t1.a = t2.b")
-        a, b = cond.left, cond.right
-
-        # decide which side each column belongs to: explicit table
-        # qualifiers (resolved through aliases) win; fall back to
-        # unqualified-name membership
-        def _side(c):
-            if c.table is None:
-                return None
-            return "r" if aliases.get(c.table, c.table) == rname else "l"
-
-        sa, sb = _side(a), _side(b)
-        if sa == "r" or sb == "l":
-            a, b = b, a              # a = left column, b = right column
-        elif sa is None and sb is None and not (
-                a.name in t.column_names
-                and b.name in rt.column_names):
-            a, b = b, a
-
-        def _resolve_left(c):
-            # a qualified left ref may carry an earlier join's suffix
-            cands = [c.name]
-            if c.table is not None:
-                sfx = suffixes.get(aliases.get(c.table, c.table))
-                if sfx:
-                    cands.insert(0, f"{c.name}{sfx}")
-            for cand in cands:
-                if cand in t.column_names:
-                    return cand
-            return c.name
-
-        l_on, r_on = _resolve_left(a), b.name
-        from .ops.join import join as join_op
-        t = join_op(t, rt, [l_on], how=how, right_on=[r_on])
-        suffixes[rname] = "_right"     # colliding right columns
+        joins.append(_JoinStep(how, rname, dict(aliases), cond.left,
+                               cond.right))
 
     where = p.expr() if p.accept("kw", "where") else None
+
     def colref():
-        """id [. id] -> resolved column name (aliases + join suffixes,
-        same candidate order as _Evaluator.col)."""
+        """id [. id] -> a column reference, resolved after the joins."""
         name = p.expect("id")[1]
-        tbl = None
         if p.accept("op", "."):
-            tbl, name = name, p.expect("id")[1]
-        cands = [name]
-        if tbl is not None:
-            tn = aliases.get(tbl, tbl)
-            cands = [f"{tn}.{name}", name]
-            sfx = suffixes.get(tn)
-            if sfx:
-                cands.insert(0, f"{name}{sfx}")
-        for c in cands:
-            if c in t.column_names:
-                return c
-        return name
+            return Col(name, p.expect("id")[1])
+        return Col(None, name)
 
     group = None
     if p.accept("kw", "group"):
@@ -731,7 +749,59 @@ def _select(tables: Dict[str, Table], query: str) -> Table:
         if p.accept("kw", "offset"):
             offset = int(p.expect("num")[1])
     p.expect("end")
-    dev = _device_of(read) or torch.device("cpu")
+    dev = _device_of([tables[n] for n in read]) or torch.device("cpu")
+
+    # read only the columns the statement names (SELECT * reads every
+    # one).  A name is kept on every table at once, so a collision is
+    # kept on both sides or on neither and each join names its columns
+    # as it would over the whole tables.
+    src = {n: tables[n] for n in read}
+    if items is not None:
+        names = _named_columns(joins, [items, where, group, having, order],
+                               aliases)
+        src = {n: _prune(s, names) for n, s in src.items()}
+    columns_in = sum(tables[n].num_columns for n in read)
+    columns_read = sum(src[n].num_columns for n in read)
+    annotate("sql.execute", columns_in=columns_in,
+             columns_read=columns_read)
+    count("sql.columns_pruned", columns_in - columns_read)
+
+    t = src[tname]
+    suffixes: Dict[str, str] = {}
+    for j in joins:
+        rt = src[j.rname]
+
+        # decide which side each column belongs to: explicit table
+        # qualifiers (resolved through aliases) win; fall back to
+        # unqualified-name membership
+        def _side(c):
+            if c.table is None:
+                return None
+            return "r" if j.aliases.get(c.table, c.table) == j.rname \
+                else "l"
+
+        a, b = j.left, j.right
+        sa, sb = _side(a), _side(b)
+        if sa == "r" or sb == "l":
+            a, b = b, a              # a = left column, b = right column
+        elif sa is None and sb is None and not (
+                a.name in t.column_names
+                and b.name in rt.column_names):
+            a, b = b, a
+        # a qualified left ref may carry an earlier join's suffix
+        l_on = a.name
+        if a.table is not None:
+            sfx = suffixes.get(j.aliases.get(a.table, a.table))
+            if sfx and f"{a.name}{sfx}" in t.column_names:
+                l_on = f"{a.name}{sfx}"
+        from .ops.join import join as join_op
+        t = join_op(t, rt, [l_on], how=j.how, right_on=[b.name],
+                    suffix=_SUFFIX)
+        suffixes[j.rname] = _SUFFIX
+    if group is not None:
+        # the candidates in order; a name none matches goes on as written
+        group = [next((c for c in _candidates(g, aliases, suffixes)
+                       if c in t.column_names), g.name) for g in group]
 
     if where is not None:
         from .ops.filter import filter_table

@@ -21,7 +21,8 @@ of arrow_tpu/utils/trace.py; the spans and `to_host` are the port's own).
   `op.take`, `strings.encode` (a string column's dictionary encode: its
   `rows`, `distinct` values and refinement `passes`, 0 on the host),
   `kernel.k1`, `kernel.k2` and `readback`; `annotate` adds a plan choice
-  to the open operator span.  `spans()` reads them,
+  to the open operator span (and to `sql.execute` the columns its tables
+  hold and the columns it reads).  `spans()` reads them,
   `self_ns` gives each its self time (its duration less what its
   children cover), `span_report()` the table by name.
 - `to_host(what, tensor)`: every device-to-host read of the query path,

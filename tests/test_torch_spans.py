@@ -291,3 +291,27 @@ def test_a_served_statement_is_a_root():
     assert copies and all(by_id[s.parent] is enc for s in copies)
     # every buffer of the 2 x 3 result: the key, the sum and the count
     assert sum(s.attrs["bytes"] for s in copies) == 2 * 3 * 8
+
+
+TPCH_STAR = ("SELECT * FROM customer JOIN orders ON c_custkey = o_custkey "
+             "JOIN lineitem ON o_orderkey = l_orderkey")
+
+
+@pytest.mark.parametrize("query, read", [("Q3", 2 + 4 + 4),
+                                         (TPCH_STAR, 8 + 9 + 16)])
+def test_statement_names_the_columns_it_reads(query, read):
+    """`sql.execute` carries the columns of the tables the statement
+    reads (customer 8, orders 9, lineitem 16) and the columns left after
+    the cut: Q3 names 2, 4 and 4 of them, SELECT * every one.  The
+    counter `sql.columns_pruned` adds the difference, 0 for SELECT *."""
+    from test_torch_tpch_strings import _chip_smoke
+    chip = _chip_smoke()
+    tabs, _ = chip.tpch_tables(2_000, 200, torch.device("cpu"), text=False,
+                               pool_bytes=1 << 16, seed=18)
+    query = chip.P32_QUERIES.get(query, query)
+    before = trace.counters_snapshot().get("sql.columns_pruned", 0)
+    _, spans = _recorded(lambda: execute_sql(tabs, query))
+    (st,) = [s for s in spans if s.name == "sql.execute"]
+    assert st.attrs == {"columns_in": 33, "columns_read": read}
+    after = trace.counters_snapshot()["sql.columns_pruned"]
+    assert after - before == 33 - read
