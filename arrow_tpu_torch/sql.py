@@ -25,7 +25,9 @@ MAX/AVG.
 
 A statement runs on the device of the tables it reads (tables on two
 devices raise) and reads only the columns it names: each table is cut to
-them before its joins and its WHERE (SELECT * reads every one).  WHERE
+them before its joins and its WHERE (SELECT * reads every one).  Before
+the joins, each table is filtered by the WHERE's conjuncts that name it
+alone (`_pushdown`); the rest of the WHERE runs after them.  WHERE
 and HAVING filter through `filter_table` (the compaction kernel on a
 card), GROUP BY runs `group_by` (the grouped-aggregation kernel on the
 dictionary and small-domain plans, the compaction kernel at the sort
@@ -671,6 +673,136 @@ def _prune(t: Table, names) -> Table:
     return t if len(keep) == t.num_columns else t.select(keep)
 
 
+def _join_keys(left: List[str], right: List[str], j: _JoinStep,
+               suffixes: Dict[str, str]) -> Tuple[str, str]:
+    """The (left, right) key names of one join over tables with these
+    column names: explicit table qualifiers (resolved through aliases)
+    decide the sides, else unqualified-name membership; a qualified left
+    key may carry an earlier join's suffix."""
+    def side(c):
+        if c.table is None:
+            return None
+        return "r" if j.aliases.get(c.table, c.table) == j.rname else "l"
+
+    a, b = j.left, j.right
+    sa, sb = side(a), side(b)
+    if sa == "r" or sb == "l":
+        a, b = b, a                  # a = left column, b = right column
+    elif sa is None and sb is None and not (a.name in left
+                                            and b.name in right):
+        a, b = b, a
+    l_on = a.name
+    if a.table is not None:
+        sfx = suffixes.get(j.aliases.get(a.table, a.table))
+        if sfx and f"{a.name}{sfx}" in left:
+            l_on = f"{a.name}{sfx}"
+    return l_on, b.name
+
+
+def _joined_columns(src: Dict[str, Table], tname: str,
+                    joins: List[_JoinStep]) -> List[Tuple[str, str, str]]:
+    """The joined table's columns from the tables' names alone, in
+    ops.join's order and naming: (name, table, the column's name
+    there)."""
+    cols = [(n, tname, n) for n in src[tname].column_names]
+    suffixes: Dict[str, str] = {}
+    for j in joins:
+        left = [n for n, _, _ in cols]
+        right = src[j.rname].column_names
+        _, r_on = _join_keys(left, right, j, suffixes)
+        taken = set(left)
+        cols += [(n if n not in taken else n + _SUFFIX, j.rname, n)
+                 for n in right if n != r_on]
+        suffixes[j.rname] = _SUFFIX
+    return cols
+
+
+def _conjuncts(e) -> list:
+    """The top-level AND operands of a WHERE, in order."""
+    if isinstance(e, Bin) and e.op == "and":
+        return _conjuncts(e.left) + _conjuncts(e.right)
+    return [e]
+
+
+def _and_all(es):
+    """The conjuncts joined again by AND, left-deep as the parser builds
+    them (None for none)."""
+    out = None
+    for e in es:
+        out = e if out is None else Bin("and", out, e)
+    return out
+
+
+def _row_safe(e) -> bool:
+    """True when `e` is built only from comparisons, BETWEEN, IN, LIKE,
+    IS [NOT] NULL, NOT, AND and OR over columns and literals: whether
+    one of these raises depends on the types alone, never on a row's
+    value (checked arithmetic, functions and casts may)."""
+    if isinstance(e, (Col, Lit)):
+        return True
+    if isinstance(e, Bin):
+        return (e.op in _CMP or e.op in ("and", "or")) and \
+            _row_safe(e.left) and _row_safe(e.right)
+    if isinstance(e, Un):
+        return e.op != "neg" and _row_safe(e.operand)
+    if isinstance(e, InList):
+        return all(map(_row_safe, [e.expr] + e.items))
+    if isinstance(e, Between):
+        return all(map(_row_safe, (e.expr, e.lo, e.hi)))
+    if isinstance(e, LikeOp):
+        return _row_safe(e.expr)
+    return False
+
+
+def _pushdown(where, src: Dict[str, Table], tname: str,
+              joins: List[_JoinStep], aliases: Dict[str, str]):
+    """The WHERE's conjuncts that name one table alone, by table, and the
+    WHERE left to run after the joins (None when nothing is left).
+
+    A conjunct goes to table T when each of its references resolves, by
+    the resolvers' rules over the joined table, to a column of T, and
+    over T alone to the same column; an unqualified name counts only
+    where one table of the statement holds it.  T is read once and is
+    not the right side of a LEFT JOIN.  A filter drops rows from a
+    join's input without reordering the rest (ops/join.py: probe order,
+    each probe row's matches in build-row order), so the joins give the
+    rows of the whole WHERE in the same order.  A WHERE with a part that
+    may raise on a row's value stays whole: the rows the pushed filters
+    drop would no longer raise."""
+    conj = _conjuncts(where)
+    if not all(map(_row_safe, conj)):
+        return {}, where
+    read = [tname] + [j.rname for j in joins]
+    right_of_left = {j.rname for j in joins if j.how == "left"}
+    joined = _joined_columns(src, tname, joins)
+    names = [n for n, _, _ in joined]
+    every = {j.rname: _SUFFIX for j in joins}
+
+    def home(c: Col) -> Optional[str]:
+        if c.table is None and sum(c.name in src[n].column_names
+                                   for n in set(read)) != 1:
+            return None
+        phys = next((x for x in _candidates(c, aliases, every)
+                     if x in names), None)
+        if phys is None:
+            return None
+        _, t, orig = joined[names.index(phys)]
+        alone = next((x for x in _candidates(c, aliases, {})
+                      if x in src[t].column_names), None)
+        return t if alone == orig else None
+
+    pushed: Dict[str, list] = {}
+    kept = []
+    for e in conj:
+        homes = {home(c) for c in _col_refs(e)}
+        t = homes.pop() if len(homes) == 1 else None
+        if t is None or read.count(t) != 1 or t in right_of_left:
+            kept.append(e)
+        else:
+            pushed.setdefault(t, []).append(e)
+    return pushed, (_and_all(kept) if pushed else where)
+
+
 def _select(tables: Dict[str, Table], query: str) -> Table:
     p = _Parser(_tokenize(query))
     p.expect("kw", "select")
@@ -762,40 +894,36 @@ def _select(tables: Dict[str, Table], query: str) -> Table:
         src = {n: _prune(s, names) for n, s in src.items()}
     columns_in = sum(tables[n].num_columns for n in read)
     columns_read = sum(src[n].num_columns for n in read)
+
+    # the WHERE's one-table conjuncts filter their table before the
+    # joins; the columns only they named are then cut by the same rule
+    pushed = {}
+    if joins and where is not None:
+        pushed, where = _pushdown(where, src, tname, joins, aliases)
+    n_pushed = sum(map(len, pushed.values()))
     annotate("sql.execute", columns_in=columns_in,
-             columns_read=columns_read)
+             columns_read=columns_read, conjuncts_pushed=n_pushed)
     count("sql.columns_pruned", columns_in - columns_read)
+    count("sql.conjuncts_pushed", n_pushed)
+    if pushed:
+        from .ops.filter import filter_table
+        masks = {n: _Evaluator(src[n], aliases, None, dev).eval(_and_all(es))
+                 for n, es in pushed.items()}
+        if items is not None:
+            names = _named_columns(joins, [items, where, group, having,
+                                           order], aliases)
+            src = {n: _prune(s, names) for n, s in src.items()}
+        for n, m in masks.items():
+            src[n] = filter_table(src[n], m)
 
     t = src[tname]
     suffixes: Dict[str, str] = {}
     for j in joins:
         rt = src[j.rname]
-
-        # decide which side each column belongs to: explicit table
-        # qualifiers (resolved through aliases) win; fall back to
-        # unqualified-name membership
-        def _side(c):
-            if c.table is None:
-                return None
-            return "r" if j.aliases.get(c.table, c.table) == j.rname \
-                else "l"
-
-        a, b = j.left, j.right
-        sa, sb = _side(a), _side(b)
-        if sa == "r" or sb == "l":
-            a, b = b, a              # a = left column, b = right column
-        elif sa is None and sb is None and not (
-                a.name in t.column_names
-                and b.name in rt.column_names):
-            a, b = b, a
-        # a qualified left ref may carry an earlier join's suffix
-        l_on = a.name
-        if a.table is not None:
-            sfx = suffixes.get(j.aliases.get(a.table, a.table))
-            if sfx and f"{a.name}{sfx}" in t.column_names:
-                l_on = f"{a.name}{sfx}"
+        l_on, r_on = _join_keys(t.column_names, rt.column_names, j,
+                                suffixes)
         from .ops.join import join as join_op
-        t = join_op(t, rt, [l_on], how=j.how, right_on=[b.name],
+        t = join_op(t, rt, [l_on], how=j.how, right_on=[r_on],
                     suffix=_SUFFIX)
         suffixes[j.rname] = _SUFFIX
     if group is not None:

@@ -297,21 +297,26 @@ TPCH_STAR = ("SELECT * FROM customer JOIN orders ON c_custkey = o_custkey "
              "JOIN lineitem ON o_orderkey = l_orderkey")
 
 
-@pytest.mark.parametrize("query, read", [("Q3", 2 + 4 + 4),
-                                         (TPCH_STAR, 8 + 9 + 16)])
-def test_statement_names_the_columns_it_reads(query, read):
+@pytest.mark.parametrize("query, read, pushed", [("Q3", 2 + 4 + 4, 3),
+                                                 (TPCH_STAR, 8 + 9 + 16, 0)])
+def test_statement_names_the_columns_it_reads(query, read, pushed):
     """`sql.execute` carries the columns of the tables the statement
-    reads (customer 8, orders 9, lineitem 16) and the columns left after
-    the cut: Q3 names 2, 4 and 4 of them, SELECT * every one.  The
-    counter `sql.columns_pruned` adds the difference, 0 for SELECT *."""
+    reads (customer 8, orders 9, lineitem 16), the columns left after
+    the cut (Q3 names 2, 4 and 4 of them, SELECT * every one) and the
+    WHERE conjuncts that filtered their table before the joins (each of
+    Q3's three names one table; SELECT * has no WHERE).  The counters
+    `sql.columns_pruned` and `sql.conjuncts_pushed` add the differences
+    and the pushed conjuncts: 0 and 0 for SELECT *."""
     from test_torch_tpch_strings import _chip_smoke
     chip = _chip_smoke()
     tabs, _ = chip.tpch_tables(2_000, 200, torch.device("cpu"), text=False,
                                pool_bytes=1 << 16, seed=18)
     query = chip.P32_QUERIES.get(query, query)
-    before = trace.counters_snapshot().get("sql.columns_pruned", 0)
+    names = ("sql.columns_pruned", "sql.conjuncts_pushed")
+    before = [trace.counters_snapshot().get(n, 0) for n in names]
     _, spans = _recorded(lambda: execute_sql(tabs, query))
     (st,) = [s for s in spans if s.name == "sql.execute"]
-    assert st.attrs == {"columns_in": 33, "columns_read": read}
-    after = trace.counters_snapshot()["sql.columns_pruned"]
-    assert after - before == 33 - read
+    assert st.attrs == {"columns_in": 33, "columns_read": read,
+                        "conjuncts_pushed": pushed}
+    after = [trace.counters_snapshot()[n] for n in names]
+    assert [a - b for a, b in zip(after, before)] == [33 - read, pushed]
