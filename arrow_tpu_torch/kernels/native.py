@@ -46,9 +46,12 @@ _SIGNATURES = {
     # slots (host), nslots, cnt_all_out, out, stream
     "atp_groupagg": ([_int, _ptr, _ptr, _i64, _int, _int, _i64, _int, _ptr,
                       _int, _i64, _ptr, _ptr], _int),
-    # device, offsets, off_width, data, n, k, rows, out, stream
-    "atp_strkey": ([_int, _ptr, _int, _ptr, _i64, _i64, _ptr, _ptr, _ptr],
-                   _int),
+    # device, n, bytes (host)
+    "atp_strrank_scratch": ([_int, _i64, _ptr], _int),
+    # device, offsets, off_width, data, n, passes, at, scratch,
+    # scratch_bytes, left (pinned host), out (host), stream
+    "atp_strrank": ([_int, _ptr, _int, _ptr, _i64, _i64, _ptr, _ptr, _i64,
+                     _ptr, _ptr, _ptr], _int),
 }
 
 

@@ -16,8 +16,9 @@ on the device.  length, octet_length and bit_length compute on the
 device.
   - `dictionary_encode` gives value-sorted values, so its codes are the
     values' ranks; sorts, group-bys and joins key a StringColumn by them.
-    On a CUDA column it ranks the rows on the card (sort refinement over
-    K3's keys, 7 bytes a pass) and copies none of the bytes to the host.
+    On a CUDA column it ranks the rows on the card (K3: sort refinement,
+    7 bytes a pass, in one native call) and copies none of the bytes to
+    the host.
   - `dictionary_decode` is a `take` of the values on the device.
   - Ranks of a dictionary's values and the merged ranks of two value
     sets (join keys, dictionary against dictionary) come from the same
@@ -55,7 +56,7 @@ from ..core.column import (Column, DictionaryColumn, ListColumn,
 from ..core.datum import Scalar
 from ..errors import ArrowNotImplementedError, ArrowTypeError
 from ..kernels.compact import compact
-from ..kernels.strkey import BYTES as STRKEY_BYTES, strkey
+from ..kernels.strkey import BYTES as STRKEY_BYTES, strrank
 from ..utils import hostcodec
 from ..utils.trace import span, to_host
 
@@ -95,19 +96,21 @@ def dictionary_encode(col: Column, code_dtype: torch.dtype = torch.int32,
     A column on a CUDA device is ranked there (`_encode_on_device`); a
     column on the CPU is interned by the host library, as the reference
     does.  Both give the same codes and values.  The call is a
-    `strings.encode` span: its rows, distinct values and passes (0 on
-    the host)."""
+    `strings.encode` span: its rows, distinct values, passes and drops
+    (0 on the host)."""
     if isinstance(col, DictionaryColumn):
         return col
     if not isinstance(col, StringColumn):
         raise ArrowTypeError(f"dictionary_encode of {type(col).__name__}")
     with span("strings.encode", rows=len(col)) as s:
         if on_cuda(col.offsets):
-            out, passes = _encode_on_device(col, code_dtype, ordered)
+            out, passes, drops = _encode_on_device(col, code_dtype, ordered)
         else:
-            out, passes = _encode_on_host(col, code_dtype, ordered), 0
+            out, passes, drops = _encode_on_host(col, code_dtype, ordered), \
+                0, 0
         if s is not None:
-            s.attrs.update(distinct=len(out.values), passes=passes)
+            s.attrs.update(distinct=len(out.values), passes=passes,
+                           drops=drops)
     return out
 
 
@@ -134,69 +137,29 @@ def _encode_on_host(col: StringColumn, code_dtype: torch.dtype,
 
 
 def _encode_on_device(col: StringColumn, code_dtype: torch.dtype,
-                      ordered: bool) -> Tuple[DictionaryColumn, int]:
-    """The device route, by sort refinement.  Every row starts in one
-    group.  Pass k orders the rows of each group by their key k (K3:
-    bytes [7k, 7k + 7), zero past the end, and how many bytes remain, so
-    a prefix sorts first: "ab" before "ab\\0") and splits the group
-    where the key differs.  A row is finished once its group is itself
-    alone, or once its key says its bytes ended (its group then holds
-    only copies of it).  After passes 1, 2, 4, 8, ... each row is given
-    its group's sorted position (the rows finished before the group plus
-    the group's first index among the rows still refined), and K1 drops
-    the finished rows from later passes, while at least as many passes
-    remain as have run: the work follows the bytes that still tell rows
-    apart, within a few times, not n times the longest row, and a column
-    whose rows all finish early stops early.
+                      ordered: bool) -> Tuple[DictionaryColumn, int, int]:
+    """The device route: K3 ranks the rows (`strrank`: each row's sorted
+    position by sort refinement, 7 bytes a pass, dropping finished rows
+    after passes 1, 2, 4, ...; one native call on a CUDA column).  The
+    codes are the dense ranks of the positions; a row of each position,
+    taken in position order, gives the values.
 
-    The codes are the dense ranks of the final positions; a row of each
-    position, taken in position order, gives the values.  Scalars reach
-    the host, never the bytes or offsets: the longest row (the number of
-    passes), the rows left after each drop, and the distinct count with
-    the values' bytes (`_gather_bytes` adds two reads, its piece bounds,
-    past GATHER_PIECE bytes of values).  Scratch is O(n), one key a row a
-    pass.  Returns the column and its passes.  Runs on any device (K1
-    and K3 take their plain versions on the CPU); `dictionary_encode`
-    sends only CUDA columns here."""
+    Scalars reach the host, never the bytes or offsets: the longest row
+    (the number of passes), the rows left after each drop (inside K3's
+    call), and the distinct count with the values' bytes
+    (`_gather_bytes` adds two reads, its piece bounds, past GATHER_PIECE
+    bytes of values).  Returns the column, the passes run and the drops
+    made.  Runs on any device (K1 and K3 take their plain versions on
+    the CPU); `dictionary_encode` sends only CUDA columns here."""
     from .take import _gather_bytes
     n, offs, dev = len(col), col.offsets, col.device
     lens = (offs[1:] - offs[:-1]).to(torch.int64)
     passes = -(-int(to_host("strings.maxlen", lens.max())) // STRKEY_BYTES) \
         if n else 0
-    itype = torch.int32 if n < 2 ** 31 else torch.int64
-    at = torch.zeros(n, dtype=itype, device=dev)   # each row's position
-    # the rows still refined (None: every row), grouped; their group ids,
-    # ascending; the rows finished before each one's group (None: none)
-    rows = group = before = None
-    done = 0
-    for k in range(passes):
-        rows, group, step, key = _refine(rows, group,
-                                         strkey(offs, col.data, k, rows))
-        done = k + 1
-        # drop finished rows after passes 1, 2, 4, ... while at least as
-        # many passes remain
-        drop = not done & (done - 1) and 2 * done <= passes
-        if done < passes and not drop:
-            continue
-        place = _first_index(group)
-        if before is not None:
-            place += before
-        at[rows] = place
-        if not drop:
-            break
-        alone = step.clone()
-        alone[:-1] &= step[1:]
-        last = alone | ((key & 15) <= STRKEY_BYTES)
-        (rows, group, place), count = compact(~last, [rows, group, place])
-        left = int(to_host("strings.rows_left", count))
-        if left == 0:
-            break
-        rows, group, place = rows[:left], group[:left], place[:left]
-        before = place - _first_index(group)
-    del rows, group, before
+    at, done, drops = strrank(offs, col.data, passes)
     first = torch.zeros(n, dtype=torch.bool, device=dev)
     first[at] = True                 # the positions that start a value
-    codes = (torch.cumsum(first, 0, dtype=itype) - 1)[at].to(code_dtype)
+    codes = (torch.cumsum(first, 0, dtype=at.dtype) - 1)[at].to(code_dtype)
     row_at = torch.zeros(n, dtype=torch.int64, device=dev)
     row_at[at] = torch.arange(n, device=dev)   # a row of each position
     (pos,), count = compact(first, [], positions=torch.int64)
@@ -210,36 +173,7 @@ def _encode_on_device(col: StringColumn, code_dtype: torch.dtype,
     values._value_ranks = (np.arange(u, dtype=np.uint64), np.zeros(u, bool))
     return DictionaryColumn(codes, values, col.validity,
                             _canonical=col.validity is None,
-                            ordered=ordered), done
-
-
-def _refine(rows: Optional[torch.Tensor], group: Optional[torch.Tensor],
-            key: torch.Tensor):
-    """One pass of `_encode_on_device`: `rows` (None: every row, in one
-    group), grouped by their ascending `group` ids, ordered within each
-    group by `key` (a stable sort by the key, then a stable sort by the
-    group, which leaves each group where it was).  Returns the rows in
-    that order, their new group ids (ascending), where a new group
-    starts, and the sorted keys."""
-    key, order = torch.sort(key, stable=True)
-    step = torch.ones_like(key, dtype=torch.bool)
-    if rows is None:                 # one group: the order is the key's
-        rows = order
-        step[1:] = key[1:] != key[:-1]
-        itype = torch.int32 if key.shape[0] < 2 ** 31 else torch.int64
-    else:
-        group, by = torch.sort(group[order], stable=True)
-        key, rows = key[by], rows[order[by]]
-        step[1:] = (key[1:] != key[:-1]) | (group[1:] != group[:-1])
-        itype = group.dtype
-    return rows, torch.cumsum(step, 0, dtype=itype), step, key
-
-
-def _first_index(group: torch.Tensor) -> torch.Tensor:
-    """For each entry of an ascending tensor, the index of the first
-    entry equal to it."""
-    return torch.searchsorted(group, group,
-                              out_int32=group.dtype == torch.int32)
+                            ordered=ordered), done, drops
 
 
 def dictionary_decode(col: DictionaryColumn) -> Column:

@@ -422,14 +422,43 @@ def _profile(fn: Callable, reps: int):
     return prof
 
 
-def kernel_ms(fn: Callable, name: str, wrapper, reps: int = 3
+def native_trace(fn: Callable, reps: int = 3):
+    """torch.profiler's key averages over `reps` calls of K3's native
+    routine after a warm-up.  The profiler now and then returns a trace
+    holding only some of the kernels launched in it: the trace must hold
+    one key_kernel for each pass the calls ran (the counter
+    strings.native_passes), else it is taken again, at most three times;
+    None when none was complete."""
+    from arrow_tpu_torch.utils import trace
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, 4):
+        before = trace.counters_snapshot().get("strings.native_passes", 0)
+        averages = _profile(fn, reps).key_averages()
+        passes = trace.counters_snapshot().get("strings.native_passes",
+                                               0) - before
+        traced = sum(e.count for e in averages if "key_kernel" in e.key)
+        if traced == passes > 0:
+            return averages
+        print(f"native_trace: trace {attempt} holds {traced} key_kernel "
+              f"launches of {passes} passes", flush=True)
+    return None
+
+
+def kernel_ms(fn: Callable, name: Optional[str], wrapper, reps: int = 3
               ) -> Optional[float]:
-    """Device time per call of the kernels whose name holds `name`, from
-    torch.profiler over `reps` calls after a warm-up.  The profiler now
-    and then returns a trace holding only some of the kernels launched in
-    it, or none: a trace that holds fewer such kernels than `wrapper`
-    counted launches is taken again, at most three times; None when none
-    was complete."""
+    """Device time per call of the kernels whose name holds `name` (of
+    every kernel of a complete `native_trace` when `name` is None: a
+    native call that launches many), from torch.profiler over `reps`
+    calls after a warm-up.  The profiler now and then returns a trace
+    holding only some of the kernels launched in it, or none: a trace
+    that holds fewer such kernels than `wrapper` counted launches is
+    taken again, at most three times; None when none was complete."""
+    if name is None:
+        averages = native_trace(fn, reps)
+        return None if averages is None else sum(
+            e.device_time_total for e in averages
+            if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / reps
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, 4):
@@ -640,7 +669,7 @@ class Site:
         name, wrapper = {
             "compact": ("compact_kernel", kc.compact),
             "grouped_aggregate": ("groupagg_kernel", kg.grouped_aggregate),
-            "strkey": ("strkey_kernel", ks.strkey)}[self.kernel]
+            "strkey": (None, ks.strrank)}[self.kernel]
         out = {"name": self.kernel, "call_site": self.call_site,
                "ms": time_ms(self.run),
                "kernel_ms": kernel_ms(self.run, name, wrapper),
@@ -676,25 +705,25 @@ def _compact_site(call_site, keep, arrays, cap, library,
 
 
 def _strkey_site(call_site: str, call) -> Site:
-    """K3 at the inputs a watched strkey call was given: key k of every
-    row, or of the row list's rows in its order.  The least bytes: the
-    offsets (two a row through a row list, the whole array at most) and
-    the row list read once, each row's bytes from 7k on (at most 7), the
-    int64 keys written."""
+    """K3 at the inputs a watched strrank call was given: every row's
+    sorted position, the passes run and the drops made.  The least bytes:
+    the offsets and the rows' bytes read once, the positions written."""
     from arrow_tpu_torch.kernels import strkey as ks
-    offsets, data, k, rows = call[0]
-    lens = (offsets[1:] - offsets[:-1]).to(torch.int64)
-    n = lens.shape[0] if rows is None else rows.shape[0]
-    if rows is not None:
-        lens = lens[rows]
-    read = nbytes(offsets) if rows is None else min(
-        nbytes(offsets), 2 * n * offsets.element_size()) + nbytes(rows)
-    moved = read + int((lens - ks.BYTES * k).clamp(0, ks.BYTES).sum()) \
-        + 8 * n
+    offsets, data, passes = call[0]
+    moved = nbytes(offsets) + int(offsets[-1] - offsets[0]) \
+        + (offsets.shape[0] - 1) * 4
     return Site("strkey", call_site,
-                lambda: ks.strkey(offsets, data, k, rows),
-                lambda: ks.strkey_plain(offsets, data, k, rows),
+                lambda: ks.strrank(offsets, data, passes),
+                lambda: ks.strrank_plain(offsets, data, passes),
                 None, moved)
+
+
+def _same_ranks(got, want, what: str) -> float:
+    """K3's (positions, passes, drops) equal to its plain loop's."""
+    if got[1:] != want[1:]:
+        raise AssertionError(f"{what}: passes and drops {got[1:]} != "
+                             f"{want[1:]}")
+    return _same_bits(got[0], want[0], what)
 
 
 def k1_config1(dev) -> Site:
@@ -1987,14 +2016,83 @@ def p25_compute_calls(i32, ts, dcol, dv, m2, m3):
 
 
 P25_TAIL = 4096                    # bytes of phase 25's long-tail value
+P25_COMMENT_ROWS = 1_100_000       # rows of phase 25's Q10-shaped column
+P25_TEXT = np.frombuffer(
+    b"furiously regular deposits sleep carefully among the final pinto "
+    b"beans. quickly ironic accounts wake blithely express, even requests "
+    b"haggle slyly; bold packages nag ", np.uint8)
+
+
+def q10_comment(n: int, device):
+    """n rows drawn like Q10's c_comment after its joins: 29-116 bytes of
+    text cut at random offsets from a pool of TPC-H-like words, about
+    three rows a value."""
+    from arrow_tpu_torch.core.column import StringColumn
+    rng = np.random.default_rng(SEED)
+    pool = P25_TEXT[rng.integers(0, len(P25_TEXT), 1 << 16)]
+    u = max(n // 3, 1)
+    pick = rng.integers(0, u, n)
+    lens = rng.integers(29, 117, u)[pick]
+    starts = rng.integers(0, len(pool) - 116, u)[pick]
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    data = pool[np.repeat(starts - offs[:-1], lens) + np.arange(offs[-1])]
+    return StringColumn.from_numpy(offs, data, device=device)
+
+
+def _q10_comment_site(dev) -> dict:
+    """K3 at a Q10-shaped c_comment (`q10_comment`): the encode's one
+    native call against its plain loop, which must run at least three
+    drops, and small_kernel in the native trace; the column decoded back
+    from its encode equals it.  The site's entry of the kernels line."""
+    from arrow_tpu_torch.kernels import strkey as ks
+    from arrow_tpu_torch.ops.strings import (dictionary_decode,
+                                             dictionary_encode)
+    col = q10_comment(P25_COMMENT_ROWS, dev)
+    what = f"phase 25, Q10-shaped c_comment of {P25_COMMENT_ROWS:,} rows"
+    launches = ks.strrank.launches
+    with watch("strrank", "strings") as calls:
+        enc = dictionary_encode(col)
+    launches = ks.strrank.launches - launches
+    back = dictionary_decode(enc)
+    torch.cuda.synchronize()
+    if not (torch.equal(back.offsets.to(torch.int64),
+                        col.offsets.to(torch.int64))
+            and torch.equal(back.data, col.data)):
+        raise AssertionError(f"{what}: the column decoded from its encode "
+                             f"differs from it")
+    if not launches == len(calls) == 1:
+        raise AssertionError(f"{what}: dictionary_encode made {launches} "
+                             f"native calls, {len(calls)} strrank calls")
+    offsets, data, passes = calls[0][0]
+    _, run, drops = ks.strrank_plain(offsets, data, passes)
+    if drops < 3:
+        raise AssertionError(f"{what}: the plain loop made {drops} drops in "
+                             f"{run} passes; the site wants three or more")
+    averages = native_trace(lambda: ks.strrank(offsets, data, passes), 1)
+    small = None if averages is None else sum(
+        e.count for e in averages if "small_kernel" in e.key)
+    if small == 0:
+        raise AssertionError(f"{what}: K3 ran no small_kernel in {run} "
+                             f"passes")
+    print(f"{what}: {run} passes, {drops} drops, "
+          f"{'not measured' if small is None else small} small_kernel "
+          f"launches; decoded back equal", flush=True)
+    site = _strkey_site(f"phase 25 dictionary_encode, Q10-shaped c_comment "
+                        f"of {P25_COMMENT_ROWS:,} rows, {run} passes, "
+                        f"{drops} drops", calls[0])
+    del enc, back, calls
+    err = check_site(site, _same_ranks, f"K3 at {site.call_site}")
+    return _entry(site, launches, err)
 
 
 def run_phase25(dev, profile: bool) -> list:
     """Phase 25: config 2's dictionary decoded to device strings, encoded
-    back (K3 against its plain version at the encode's first key and its
-    last, through the row list), grouped by and filtered; config 5's index-plan join carrying a
-    string column; the new elementwise functions against the CPU
-    route."""
+    back (K3's native call against its plain loop: 9-byte rows, where
+    only the sort path runs, and a Q10-shaped c_comment, where the drops
+    chain their offsets and the small groups take small_kernel), grouped
+    by and filtered; config 5's index-plan join carrying a string column;
+    the new elementwise functions against the CPU route."""
     from arrow_tpu_torch import dtypes as dt
     from arrow_tpu_torch.core.column import (DictionaryColumn,
                                              PrimitiveColumn, StringColumn)
@@ -2022,12 +2120,12 @@ def run_phase25(dev, profile: bool) -> list:
     _same_strings(s, codes, f"{what}: dictionary_decode")
     times["dictionary_decode"] = time_ms(lambda: dictionary_decode(dcol))
     torch.cuda.synchronize()
-    ks.strkey.launches = 0
+    ks.strrank.launches = 0
     trace.reset_spans()
-    with watch("strkey", "strings") as k3_calls, trace.recording():
+    with watch("strrank", "strings") as k3_calls, trace.recording():
         enc = dictionary_encode(s)
     torch.cuda.synchronize()
-    k3_launches = ks.strkey.launches
+    k3_launches = ks.strrank.launches
     (encode,) = [x for x in trace.spans() if x.name == "strings.encode"]
     trace.reset_spans()
     if enc.values.to_pylist() != config2_words() or \
@@ -2035,9 +2133,8 @@ def run_phase25(dev, profile: bool) -> list:
         raise AssertionError(f"{what}: dictionary_encode differs from the "
                              f"words and their indices")
     passes = encode.attrs["passes"]
-    if not k3_launches == len(k3_calls) == passes >= 2 \
-            or k3_calls[-1][0][3] is None:
-        raise AssertionError(f"{what}: dictionary_encode launched K3 "
+    if not k3_launches == len(k3_calls) == 1 or passes < 2:
+        raise AssertionError(f"{what}: dictionary_encode called K3 "
                              f"{k3_launches} times for {passes} passes")
     times["dictionary_encode"] = time_ms(lambda: dictionary_encode(s), 3)
     del enc
@@ -2071,16 +2168,12 @@ def run_phase25(dev, profile: bool) -> list:
           f"{P25_TAIL:,} bytes equal to the words and codes: {tail_passes} "
           f"passes, {reads} readbacks, "
           f"{times['dictionary_encode (long tail)']:.4f} ms", flush=True)
-    entries = []
-    for call, how in ((k3_calls[0], "in row order"),
-                      (k3_calls[-1], "through the row list")):
-        site = _strkey_site(f"phase 25 dictionary_encode, {n:,} rows of "
-                            f"9 bytes, key {call[0][2]} of {passes} "
-                            f"{how}", call)
-        err = check_site(site, _same_bits, f"K3 at {site.call_site}")
-        entries.append(_entry(site, k3_launches, err))
-        del site
-    del k3_calls, call
+    site = _strkey_site(f"phase 25 dictionary_encode, {n:,} rows of 9 "
+                        f"bytes, {passes} passes", k3_calls[0])
+    err = check_site(site, _same_ranks, f"K3 at {site.call_site}")
+    entries = [_entry(site, k3_launches, err)]
+    del site, k3_calls
+    entries.append(_q10_comment_site(dev))
     if profile:
         profile_call(f"{what} dictionary_decode",
                      lambda: dictionary_decode(dcol))
@@ -2088,8 +2181,8 @@ def run_phase25(dev, profile: bool) -> list:
                      lambda: dictionary_encode(s))
     print(f"{what}: dictionary_decode to {s.data.numel():,} bytes on the "
           f"card and dictionary_encode back equal the words and codes; "
-          f"decode {times['dictionary_decode']:.4f} ms, encode (K3 and "
-          f"sort refinement, {passes} passes, {k3_launches} K3 launches) "
+          f"decode {times['dictionary_decode']:.4f} ms, encode (K3's sort "
+          f"refinement, {passes} passes in {k3_launches} call) "
           f"{times['dictionary_encode']:.4f} ms", flush=True)
 
     # group-by on the Utf8 key

@@ -3,7 +3,8 @@ trace.py): spans nest under the SQL statement that caused them, self time
 on a hand-built tree, nothing recorded (and no profiler annotation made)
 while recording is off, the spans on torch.profiler's timeline by name,
 `to_host`'s record and its guard inside a fused region, the plan each
-operator span names, and `span_report`'s totals.  All on the CPU."""
+operator span names, and `span_report`'s totals.  All on the CPU but the
+count of the device encode's native passes, on the card."""
 
 import numpy as np
 import pytest
@@ -46,6 +47,15 @@ def _tables():
         "cid": np.array([1, 2, 3, 4], np.int64),
         "name": ["ann", "bob", "cat", "dan"]}, device="cpu")
     return {"orders": orders, "custs": custs}
+
+
+@pytest.fixture
+def cuda_device():
+    """The card; the test skips where there is none (decided at run
+    time)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the device encode's native route")
+    return torch.device("cuda")
 
 
 def _recorded(fn):
@@ -207,22 +217,40 @@ def test_group_by_names_its_plan(plan):
 def test_string_key_encode_is_a_span_under_the_group_by():
     """A string key's dictionary encode is a `strings.encode` span inside
     the operator that asked for it; a CPU column takes the host route,
-    with no refinement passes, and a dictionary passes through
-    unrecorded."""
+    with no refinement passes or drops and none counted as native, and a
+    dictionary passes through unrecorded."""
     from arrow_tpu_torch.ops.strings import dictionary_encode
     t = att.Table([att.column(["b", "a", None, "b"], device="cpu"),
                    att.column(np.arange(4), device="cpu")],
                   pdt.Schema((pdt.Field("k", pdt.utf8),
                               pdt.Field("v", pdt.int64))))
+    native = trace.counters_snapshot().get("strings.native_passes", 0)
     _, spans = _recorded(lambda: group_by(t, ["k"], [AggSpec("v", "sum")]))
     (op,) = [s for s in spans if s.name == "op.group_by"]
     (enc,) = [s for s in spans if s.name == "strings.encode"]
     assert enc.parent == op.id
-    assert enc.attrs == {"rows": 4, "distinct": 3, "passes": 0}
+    assert enc.attrs == {"rows": 4, "distinct": 3, "passes": 0, "drops": 0}
+    assert trace.counters_snapshot().get("strings.native_passes", 0) == \
+        native
     dcol = dictionary_encode(t.column("k"))
     trace.reset_spans()
     _, spans = _recorded(lambda: dictionary_encode(dcol))
     assert spans == []
+
+
+def test_cuda_encode_counts_its_native_passes(cuda_device):
+    """On the card the encode's span carries the passes and drops of K3's
+    routine, and `strings.native_passes` adds the same passes."""
+    from arrow_tpu_torch.ops.strings import dictionary_encode
+    words = [f"customer#{i % 700:09d} {'x' * (i % 23)}" for i in range(3000)]
+    col = att.column(words, device=cuda_device)
+    native = trace.counters_snapshot().get("strings.native_passes", 0)
+    _, spans = _recorded(lambda: dictionary_encode(col))
+    (enc,) = [s for s in spans if s.name == "strings.encode"]
+    assert enc.attrs["passes"] == -(-max(map(len, words)) // 7)
+    assert enc.attrs["drops"] >= 1 and enc.attrs["distinct"] == len(set(words))
+    assert trace.counters_snapshot()["strings.native_passes"] - native == \
+        enc.attrs["passes"]
 
 
 JOIN_RIGHT = {

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import arrow_tpu as at
 import arrow_tpu_torch as att
@@ -312,11 +313,52 @@ def _early_end(seed: int):
                  + [rng.integers(0, 256, 1000, np.uint8).tobytes()])
 
 
+def _all_distinct(seed: int):
+    """500 distinct rows of 0-40 random bytes: every row ends alone."""
+    rng = np.random.default_rng(seed)
+    uniq = {rng.integers(0, 256, n, np.uint8).tobytes()
+            for n in rng.integers(0, 41, 520)}
+    return _rows(sorted(uniq, key=lambda b: rng.random())[:500])
+
+
+def _key_edges():
+    """Rows ending just before, at and after a key's 7 bytes and two
+    keys' 14, with and without zero bytes after a shared prefix."""
+    base = b"abcdefghijklmnop"
+    rows = [base[:n] + tail for n in (6, 7, 8, 13, 14, 15)
+            for tail in (b"", b"\x00", b"\x00\x00")]
+    return _rows(rows * 3 + [b"\x00" * 7, b"\x00" * 14, b"\x00" * 8])
+
+
+def _group_sizes(seed: int, copies: bool):
+    """Groups past and under the 64 rows a thread sorts on the card: 300
+    rows sharing their first 7 bytes, then 2 copies of each suffix (one
+    group of 300 after pass 1, of 2 after pass 2); with `copies`, 3
+    values of 40 bytes 70-130 times each too (groups of more than 64 to
+    the last pass)."""
+    rng = np.random.default_rng(seed)
+    suffix = [rng.integers(0, 256, 20, np.uint8).tobytes() for _ in range(150)]
+    rows = [b"common!" + x for x in suffix * 2]
+    if copies:
+        values = [rng.integers(0, 256, 40, np.uint8).tobytes()
+                  for _ in range(3)]
+        rows += [v for v, k in zip(values, (70, 100, 130)) for _ in range(k)]
+    return _rows([rows[i] for i in rng.permutation(len(rows))])
+
+
 ENCODE_CASES = {
+    "prefix_fanout": lambda: _group_sizes(47, False),
+    "large_copies": lambda: _group_sizes(53, True),
     "zero_rows": lambda: _rows([]),
     "one_row": lambda: _rows([b"word"]),
     "all_equal": lambda: _rows([b"same value"] * 50),
+    "all_distinct": lambda: _all_distinct(31),
+    "key_edges": _key_edges,
     "empty_string": lambda: _rows([b"", b"a", b"", b"\x00", b""]),
+    "all_empty": lambda: _rows([b""] * 9, np.arange(9) % 3 == 0),
+    "embedded_zeros": lambda: _rows(
+        [b"\x00", b"a\x00b", b"a\x00", b"a", b"\x00a", b"\x00\x00",
+         b"a\x00b\x00", b"a\x00a", b"\x00"] * 2),
     "prefix_across_words": lambda: _rows(
         [b"abcdefghi", b"abcdefgh\x00", b"abcdefgh", b"abcdefgh", b"abcdefg",
          b"abcdefgh\x00\x00", b"abcdefghabcdefgh", b"abcdefghabcdefgh\x00",
@@ -378,17 +420,17 @@ def _same_encoding(got, want, col) -> None:
                                     "large_binary"])
 def test_device_route_of_dictionary_encode_equals_the_host_route(case,
                                                                  layout):
-    """The route a CUDA column takes (K3's keys, the stable sorts, the
-    refinement, K1's drops of finished rows and run starts, here on
-    their plain versions) and the host route both give the reference's
+    """The route a CUDA column takes (K3's ranking by sort refinement
+    with its drops of finished rows, K1's run starts, here on their plain
+    versions) and the host route both give the reference's
     codes, values and validity bit for bit, null rows' bytes ranked with
     the rest; the device route runs at most one pass a 7 bytes of the
     longest row."""
     from arrow_tpu_torch.kernels.strkey import BYTES
     ref, col, longest = _encode_case(case, layout)
     want = rstr.dictionary_encode(ref, ordered=True)
-    got, passes = ps._encode_on_device(col, torch.int32, True)
-    assert passes <= -(-longest // BYTES)
+    got, passes, drops = ps._encode_on_device(col, torch.int32, True)
+    assert passes <= -(-longest // BYTES) and drops <= passes
     if case == "early_end":
         assert passes < 8
     _same_encoding(got, want, col)
@@ -412,30 +454,42 @@ def _python_words(chunks, k, rows):
 def test_strkey_plain_gives_the_words(rng, off_dtype, with_rows):
     """K3's plain version: each row's key k as the definition gives it,
     for sliced offsets (not starting at 0) and a row list."""
-    from arrow_tpu_torch.kernels.strkey import strkey
+    from arrow_tpu_torch.kernels.strkey import strkey_plain
     chunks = [rng.integers(0, 256, n, np.uint8).tobytes()
               for n in rng.integers(0, 30, 200)]
     offs, data, _ = _rows([b"skipped"] + chunks)
     offsets = torch.from_numpy(offs[1:]).to(off_dtype)
     rows = rng.permutation(200)[:150] if with_rows else np.arange(200)
     for k in range(6):
-        got = strkey(offsets, torch.from_numpy(data.copy()), k,
-                     torch.from_numpy(rows) if with_rows else None)
+        got = strkey_plain(offsets, torch.from_numpy(data.copy()), k,
+                           torch.from_numpy(rows) if with_rows else None)
         assert got.dtype == torch.int64
         assert got.tolist() == _python_words(chunks, k, rows)
 
 
-def test_strkey_rejects_bad_arguments():
+STRRANK_BAD_ARGS = {
+    "int16_offsets": lambda o, d: (o.to(torch.int16), d, 1),
+    "2d_offsets": lambda o, d: (o.reshape(1, -1), d, 1),
+    "strided_offsets": lambda o, d: (torch.stack([o, o], 1)[:, 0], d, 1),
+    "no_offsets": lambda o, d: (o[:0], d, 0),
+    "int8_data": lambda o, d: (o, d.to(torch.int8), 1),
+    "strided_data": lambda o, d: (o, torch.stack([d, d], 1)[:, 0], 1),
+    "negative_passes": lambda o, d: (o, d, -1),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(STRRANK_BAD_ARGS))
+def test_strkey_rejects_bad_arguments(bad):
+    """K3's wrapper checks its arguments before any launch, on either
+    device."""
     from arrow_tpu_torch.errors import ArrowInvalid
-    from arrow_tpu_torch.kernels.strkey import strkey
-    offs = torch.tensor([0, 2], dtype=torch.int32)
-    data = torch.zeros(2, dtype=torch.uint8)
-    rows32 = torch.zeros(1, dtype=torch.int32)
-    for args in ((offs.to(torch.int16), data, 0),
-                 (offs, data.to(torch.int8), 0), (offs, data, -1),
-                 (offs, data, 0, rows32)):
-        with pytest.raises(ArrowInvalid):
-            strkey(*args)
+    from arrow_tpu_torch.kernels import strkey as ks
+    offs = torch.tensor([0, 2, 3], dtype=torch.int32)
+    data = torch.zeros(3, dtype=torch.uint8)
+    before = ks.strrank.launches
+    with pytest.raises(ArrowInvalid):
+        ks.strrank(*STRRANK_BAD_ARGS[bad](offs, data))
+    assert ks.strrank.launches == before
 
 
 def test_dictionary_decode_matches_reference(rng, route):
@@ -722,49 +776,71 @@ def _to(col, device):
     return port_column(col, device)
 
 
+def _q10_comment(seed: int, n: int):
+    """n rows drawn like Q10's c_comment after its joins: 29-116 bytes of
+    text cut from a pool at random offsets, about three rows a value."""
+    rng = np.random.default_rng(seed)
+    pool = TEXT[rng.integers(0, len(TEXT), 1 << 16)]
+    u = max(n // 3, 1)
+    pick = rng.integers(0, u, n)
+    lens = rng.integers(29, 117, u)[pick]
+    starts = rng.integers(0, len(pool) - 116, u)[pick]
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    data = pool[np.repeat(starts - offs[:-1], lens) + np.arange(offs[-1])]
+    return offs, data, None
+
+
+def _string_column(offs, data, device):
+    return StringColumn.from_numpy(offs.astype(np.int32), data,
+                                   dtype=att.dtypes.utf8, device=device)
+
+
+@pytest.mark.parametrize("case", sorted(ENCODE_CASES))
 @pytest.mark.parametrize("off_dtype", [torch.int32, torch.int64])
-@pytest.mark.parametrize("n", [0, 1, 1000, 300_001])
-def test_strkey_kernel_matches_plain_on_cuda(cuda_device, off_dtype, n):
-    """K3 against its plain version: every word of rows of 0-40 bytes
-    (offsets not starting at 0), in row order and through a row list."""
+def test_strrank_matches_plain_on_cuda(cuda_device, case, off_dtype):
+    """K3 against its plain loop: every row's sorted position, the passes
+    run and the drops made, with offsets not starting at 0; one native
+    call a ranking."""
     from arrow_tpu_torch.kernels import strkey as ks
-    g = np.random.default_rng(n)
-    lens = g.integers(0, 41, n)
-    offs = np.concatenate([[5], 5 + np.cumsum(lens)]).astype(np.int64)
-    data = torch.from_numpy(g.integers(0, 256, int(offs[-1]) + 3, np.uint8))
-    offsets = torch.from_numpy(offs).to(off_dtype)
-    rows = torch.from_numpy(g.permutation(n)).to(torch.int64)
-    for r in (None, rows, rows[: n // 2]):
-        for k in range(6):
-            before = ks.strkey.launches
-            got = ks.strkey(offsets.to(cuda_device), data.to(cuda_device),
-                            k, None if r is None else r.to(cuda_device))
-            torch.cuda.synchronize()
-            assert ks.strkey.launches == before + 1
-            want = ks.strkey_plain(offsets, data, k, r)
-            assert torch.equal(got.cpu(), want)
+    offs, data, _ = ENCODE_CASES[case]()
+    offsets = torch.from_numpy(offs + 5).to(off_dtype)
+    data = torch.from_numpy(np.concatenate([np.full(5, 255, np.uint8), data,
+                                            np.full(3, 255, np.uint8)]))
+    passes = -(-int(np.diff(offs).max(initial=0)) // ks.BYTES)
+    want = ks.strrank_plain(offsets, data, passes)
+    before = ks.strrank.launches
+    at, done, drops = ks.strrank(offsets.to(cuda_device),
+                                 data.to(cuda_device), passes)
+    torch.cuda.synchronize()
+    assert ks.strrank.launches == before + 1
+    assert at.device.type == "cuda" and at.dtype == torch.int32
+    assert torch.equal(at.cpu(), want[0]) and (done, drops) == want[1:]
 
 
-@pytest.mark.parametrize("case", ["tpch_text", "lengths_0_130",
-                                  "nulls_with_and_without_bytes",
-                                  "prefix_across_words", "zero_rows",
-                                  "long_tail", "early_end", "high_bytes"])
-@pytest.mark.parametrize("layout", ["utf8", "large_utf8", "binary"])
+@pytest.mark.parametrize("case", sorted(ENCODE_CASES))
+@pytest.mark.parametrize("layout", ["utf8", "large_utf8", "binary",
+                                    "large_binary"])
 def test_dictionary_encode_on_cuda_equals_the_host_route(cuda_device, case,
                                                          layout):
     """dictionary_encode of a CUDA column ranks it on the card: the
-    reference's codes and values bit for bit, as the host route gives
-    them; one K3 launch a pass; a `strings.encode` span; and only scalar
-    readbacks (the longest row, the rows left after each drop of finished
-    rows, the distinct count with the values' bytes): none of the
-    column's bytes or offsets reach the host."""
+    reference's codes and values bit for bit, as the host route and the
+    plain loop give them, with the plain loop's passes and drops; one K3
+    call and one K1 launch (the run starts) an encode; a `strings.encode`
+    span; and only scalar readbacks (the longest row, the distinct count
+    with the values' bytes; K3 reads the rows left after each drop inside
+    its call, with no readback span): none of the column's bytes or
+    offsets reach the host."""
     from arrow_tpu_torch.kernels import strkey as ks
     from arrow_tpu_torch.utils import trace
     ref, gpu, longest = _encode_case(case, layout, cuda_device)
     want = rstr.dictionary_encode(ref)
     cpu = port_column(ref)
     _same_encoding(ps.dictionary_encode(cpu), want, cpu)
-    before = ks.strkey.launches
+    plain, passes, drops = ps._encode_on_device(cpu, torch.int32, False)
+    _same_encoding(plain, want, cpu)
+    assert passes <= -(-longest // ks.BYTES)
+    before = (ks.strrank.launches, kc.compact.launches)
     trace.reset_spans()
     with trace.recording():
         got = ps.dictionary_encode(gpu)
@@ -772,20 +848,88 @@ def test_dictionary_encode_on_cuda_equals_the_host_route(cuda_device, case,
     spans = trace.spans()
     trace.reset_spans()
     (enc,) = [s for s in spans if s.name == "strings.encode"]
-    most = -(-longest // ks.BYTES)
-    passes = enc.attrs["passes"]
-    assert passes <= most
     assert enc.attrs == {"rows": len(gpu), "distinct": len(want.values),
-                         "passes": passes}
-    assert ks.strkey.launches == before + passes
+                         "passes": passes, "drops": drops}
+    assert (ks.strrank.launches, kc.compact.launches) == \
+        (before[0] + 1, before[1] + 1)
     reads = [s.attrs["site"] for s in spans if s.name == "readback"]
-    drops = [d for d in (1 << i for i in range(12))
-             if d <= passes and 2 * d <= most]
-    assert reads == ["strings.maxlen"] * bool(len(gpu)) \
-        + ["strings.rows_left"] * len(drops) + ["strings.distinct"]
+    assert reads == ["strings.maxlen"] * bool(len(gpu)) + ["strings.distinct"]
     assert all(s.attrs["bytes"] <= 16 for s in spans if s.name == "readback")
     assert got.codes.device == gpu.device
     _same_encoding(got, want, gpu)
+
+
+def test_strrank_of_a_q10_comment_on_cuda(cuda_device):
+    """A column shaped like Q10's c_comment at 1M rows (17 passes): K3
+    equals its plain loop, and the encode on the card the host route."""
+    from arrow_tpu_torch.kernels import strkey as ks
+    offs, data, _ = _q10_comment(37, 1 << 20)
+    cpu, gpu = (_string_column(offs, data, d) for d in ("cpu", cuda_device))
+    passes = -(-int(np.diff(offs).max()) // ks.BYTES)
+    want = ks.strrank_plain(cpu.offsets, cpu.data, passes)
+    at, done, drops = ks.strrank(gpu.offsets, gpu.data, passes)
+    assert (done, drops) == want[1:] and done == passes == 17
+    assert torch.equal(at.cpu(), want[0])
+    host, dev = ps.dictionary_encode(cpu), ps.dictionary_encode(gpu)
+    assert torch.equal(dev.codes.cpu(), host.codes)
+    assert torch.equal(dev.values.offsets.cpu(), host.values.offsets)
+    assert torch.equal(dev.values.data.cpu(), host.values.data)
+
+
+def test_cuda_encode_takes_no_more_memory_than_the_plain_loop(
+        cuda_device, monkeypatch):
+    """The peak a CUDA encode adds with K3's routine is no more than the
+    same encode with the plain loop on the card."""
+    from arrow_tpu_torch.kernels import strkey as ks
+    gpu = _string_column(*_q10_comment(41, 200_000)[:2], cuda_device)
+
+    def rise():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = ps.dictionary_encode(gpu)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base, out
+
+    native, got = rise()
+    monkeypatch.setattr(ps, "strrank", ks.strrank_plain)
+    plain, want = rise()
+    assert torch.equal(got.codes, want.codes)
+    assert 0 < native <= plain
+
+
+class _CountOps(TorchDispatchMode):
+    """Counts the ops the dispatcher sees."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_cuda_encode_ops_do_not_grow_with_its_passes(cuda_device):
+    """A CUDA encode makes no torch op a pass: a 17-pass column costs no
+    more eager ops than a 3-pass one."""
+    from arrow_tpu_torch.utils import trace
+    rng = np.random.default_rng(43)
+    ops = {}
+    for lo, hi in ((15, 22), (113, 120)):
+        chunks = [TEXT[rng.integers(0, len(TEXT), n)].tobytes()
+                  for n in rng.integers(lo, hi, 2_000)]
+        offs, data, _ = _rows([chunks[i] for i in
+                               rng.integers(0, 2_000, 6_000)])
+        gpu = _string_column(offs, data, cuda_device)
+        ps.dictionary_encode(gpu)
+        before = trace.counters_snapshot().get("strings.native_passes", 0)
+        with _CountOps() as count:
+            ps.dictionary_encode(gpu)
+        passes = trace.counters_snapshot()["strings.native_passes"] - before
+        ops[passes] = count.n
+    assert sorted(ops) == [3, 17]
+    assert ops[17] <= ops[3]
 
 
 def test_cuda_strings_match_the_cpu_route(cuda_device, rng):
