@@ -417,6 +417,12 @@ class FlightServer:
     def uri(self) -> str:
         return f"grpc://localhost:{self.port}"
 
+    @property
+    def put_device(self) -> torch.device:
+        """Where a DoPut stream's tables are decoded (the server's
+        device; io/flightsql.py decodes on the host)."""
+        return self.device
+
     def shutdown(self) -> None:
         self._server.stop(grace=None)
 
@@ -663,7 +669,7 @@ class _Handlers(grpc.GenericRpcHandler):
 
         if name == "DoPut":
             def do_put(req_iter, context):
-                dec = FlightStreamDecoder(s.device)
+                dec = FlightStreamDecoder(s.put_device)
                 try:
                     tables = dec.decode_all(req_iter)
                     # a do_put hook may RETURN app_metadata bytes (the

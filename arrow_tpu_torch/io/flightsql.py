@@ -14,7 +14,10 @@ sql/client.rs (execute / prepared statements / catalog metadata).
 The default executor is the engine's SQL frontend (sql.py) over the
 server's registered tables, which stay resident on the server's device;
 the metadata tables (catalogs, SqlInfo, keys, XDBC types) are made on
-that device too.  A cancelled query's ticket is refused until a new
+that device too.  The server holds each table as a version
+(storage.TableVersion): a write publishes a new one made from what the
+statement changes, a transaction publishes all of its tables at once,
+and a statement reads the versions current when it was admitted.  A cancelled query's ticket is refused until a new
 GetFlightInfo issues the same command again, which is a new query, as
 in arrow-rs (the reference refuses the command for the life of the
 server: ROADMAP C7.2).
@@ -22,24 +25,32 @@ server: ROADMAP C7.2).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import threading
+import time
 import uuid as _uuid
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import dtypes as _dt
 from ..core.table import Table
 from ..errors import ArrowInvalid, ArrowNotImplementedError
+from ..storage import Delta, TableVersion
 from ..utils import trace
 from .flight import (FlightDescriptor, FlightInfo, FlightServer,
                      FlightTableClient, DESCRIPTOR_CMD, _concat,
                      _empty_table, schema_ipc_bytes)
 
 __all__ = ["FlightSQLServer", "FlightSQLClient", "StatementGate",
-           "simple_sql_executor", "simple_sql_update_executor", "dt_schema"]
+           "simple_sql_executor", "simple_sql_update_executor", "dt_schema",
+           "SNAPSHOT_KEY"]
+
+SNAPSHOT_KEY = "arrow_tpu.snapshot"   # a result's schema metadata: its commit
+TXN_IDLE_S = 30           # an open transaction idle this long is rolled back
 
 
 def dt_schema(names, cols):
@@ -524,8 +535,8 @@ def simple_sql_executor(tables: Dict[str, Table], query: str) -> Table:
 def simple_sql_update_executor(tables: Dict[str, Table], query: str, *,
                                device=None):
     """Execute one DML/DDL statement via the engine's SQL frontend ->
-    (mutations, record_count); `CREATE TABLE` makes its table on
-    `device` (sql.execute_sql_update).  The reference delegates update
+    (deltas, record_count) (storage.Delta by table); `CREATE TABLE`
+    makes its table on `device` (sql.execute_sql_update).  The reference delegates update
     SQL to the application (sql/server.rs:399 do_put_statement_update);
     this is that application side."""
     from ..sql import execute_sql_update
@@ -615,6 +626,57 @@ class StatementGate:
                 return fn()
 
 
+# ---- versions, snapshots and transactions -----------------------------------------
+
+class _Snapshot(dict):
+    """The table versions a statement reads (name -> TableVersion) as of
+    commit `commit`, and the names it looked up."""
+
+    def __init__(self, versions: dict, commit: int):
+        super().__init__(versions)
+        self.commit = commit
+        self.read: set = set()
+
+    def __getitem__(self, name):
+        self.read.add(name)
+        return super().__getitem__(name)
+
+    def as_of(self) -> int:
+        """The commit whose data an answer shows: the snapshot's, or where
+        the statement read a table made by CREATE TABLE ... AS, the
+        oldest snapshot such a table was made from."""
+        made = [v.derived for n in self.read
+                if (v := dict.get(self, n)) is not None
+                and v.derived is not None]
+        return min(made + [self.commit])
+
+
+def _stamped(table: Table, commit: int) -> Table:
+    """`table` with the commit of its snapshot in its schema's metadata
+    (SNAPSHOT_KEY)."""
+    meta = tuple(kv for kv in table.schema.metadata
+                 if kv[0] != SNAPSHOT_KEY) + ((SNAPSHOT_KEY, str(commit)),)
+    return Table(table.columns, _dt.Schema(table.schema.fields, meta),
+                 _validated=True)
+
+
+class _Transaction:
+    """An open transaction: its age `seq` (lower: older); the versions
+    its statements made (None: dropped), published together at COMMIT;
+    the write locks it holds until it ends; its statements running and
+    when the last ended, for its expiry; the time it began and its
+    statements, for its span."""
+
+    def __init__(self, seq: int):
+        self.seq = seq
+        self.versions: Dict[str, Optional[TableVersion]] = {}
+        self.held: set = set()
+        self.wait_ns = 0
+        self.statements = self.running = 0
+        self.last = time.monotonic()
+        self.start_ns = time.time_ns()
+
+
 # ---- server --------------------------------------------------------------------
 
 class FlightSQLServer(FlightServer):
@@ -627,9 +689,30 @@ class FlightSQLServer(FlightServer):
     registered tables, what DML and ingest make and the metadata tables
     are on `device`.
 
-    Every query, prepared statement and DML statement passes `gate`
-    (StatementGate), so statements of concurrent handlers share the
-    card.  Each GetFlightInfo of a command runs it once and issues a
+    Every query, prepared statement, DML statement and ingest passes
+    `gate` (StatementGate), so statements of concurrent handlers share
+    the card.
+
+    Tables are versions (storage.TableVersion).  A statement reads the
+    versions current when the gate admits it (snapshot isolation); each
+    query's result carries the commit number of that snapshot under its
+    schema metadata key SNAPSHOT_KEY (for a statement over a table made
+    by CREATE TABLE ... AS, the snapshot that table was made from).  A
+    write (DML, DDL, ingest) takes its table's write lock before the
+    gate, so a writer waits only for writers of the same table; it
+    applies its delta (sql.execute_sql_update) to the current version
+    and publishes the result with a new commit number.  A statement or
+    ingest that carries a transaction id keeps its versions, and its
+    write locks, until EndTransaction: COMMIT publishes every table the
+    transaction wrote as one commit, ROLLBACK publishes nothing; its own
+    later statements read what it wrote.  A transaction that holds write
+    locks and needs one that an older transaction holds fails at once
+    (wait-die: no two writers wait for each other), and a transaction
+    idle for TXN_IDLE_S is rolled back.  `history` lists each commit's
+    number and tables.  Recorded, a publish is a `table.publish` span
+    (`tables`, `wait_ns`: what the statement or transaction waited for
+    its write locks) and a transaction a `flightsql.transaction` span
+    from its begin to its end (`statements`, `outcome`).  Each GetFlightInfo of a command runs it once and issues a
     ticket of its own (the command with the server's issue number in
     field 3 of the Any, which decoders skip), and DoGet of that ticket
     returns exactly that call's result: two clients that send the same
@@ -652,17 +735,24 @@ class FlightSQLServer(FlightServer):
         self._prepared: Dict[bytes, str] = {}
         self._prepared_params: Dict[bytes, Table] = {}
         self._plock = threading.Lock()
-        # serializes DML read-modify-write cycles: without it two
-        # concurrent CommandStatementUpdates could both snapshot, both
-        # mutate, and one write would silently win (lost update)
-        self._update_lock = threading.Lock()
+        # a write lock per table, by its holder (None: a statement outside
+        # a transaction): a writer takes its table's before its snapshot
+        # and keeps it until it publishes (or its transaction ends), so
+        # two writers of one table cannot both read a version and lose
+        # one write, and appends into the shared buffers' tails come one
+        # at a time
+        self._writers: Dict[str, Optional[_Transaction]] = {}
+        self._released = threading.Condition()
+        self._ages = itertools.count()
+        self._commit = 0                          # the last commit's number
+        self.history = collections.deque(maxlen=1 << 16)  # (commit, tables)
         self._results: Dict[bytes, Table] = {}   # ticket -> its result
         self._issued = itertools.count(1)         # a ticket's number
         self.gate = StatementGate(self.device)
         self._cancelled: set = set()   # cancelled, until issued anew
         self._temp_tables: set = set()
         self.sql_info = default_sql_info()
-        self._transactions: set = set()
+        self._transactions: Dict[bytes, _Transaction] = {}
         # table -> [(column_name, key_name, seq)]
         self._primary_keys: Dict[str, list] = {}
         # (pk_table, fk_table) -> [(pk_col, fk_col, seq, update, delete)]
@@ -696,30 +786,193 @@ class FlightSQLServer(FlightServer):
                              f"fk_{ft}", f"pk_{pt}", ur, dr))
         return rows
 
-    # -- command plumbing ------------------------------------------------
-    def _run(self, query: str, kind: str = "query") -> Table:
-        return self.gate.run(
-            kind, lambda: self._executor(dict(self._tables), query))
+    # -- tables as versions -----------------------------------------------
+    @property
+    def put_device(self) -> torch.device:
+        """DoPut streams land on the host: an ingest maps its dictionaries
+        there and its rows reach the card through pinned memory, queued
+        on the stream (storage.py), so a write does not wait for the
+        statements already on the card."""
+        return torch.device("cpu")
 
-    def _run_update(self, query: str, kind: str = "update") -> int:
-        """Execute DML and apply its table mutations atomically (one
-        writer at a time; readers stay lock-free on the registry), as
-        one statement at the gate, which is taken before the lock."""
-        return self.gate.run(kind, lambda: self._apply_update(query))
+    def register(self, name: str, table: Table) -> None:
+        with self._lock:
+            self._tables[name] = TableVersion.of(table)
 
-    def _apply_update(self, query: str) -> int:
-        with self._update_lock:
+    def get_table(self, name: str) -> Table:
+        """The table's rows as a reader sees them now."""
+        with self._lock:
+            v = self._tables[name]
+        return v.visible()
+
+    def _snapshot(self, txn: Optional[_Transaction] = None) -> _Snapshot:
+        """The versions current now, under an open transaction's own."""
+        with self._lock:
+            snap = _Snapshot(self._tables, self._commit)
+        if txn is not None:
+            for name, v in txn.versions.items():
+                if v is None:
+                    dict.pop(snap, name, None)
+                else:
+                    dict.__setitem__(snap, name, v)
+        return snap
+
+    @contextlib.contextmanager
+    def _in_transaction(self, tid: Optional[bytes]):
+        """The open transaction `tid` (None without an id) while one of
+        its statements runs; it does not expire meanwhile."""
+        if not tid:
+            yield None
+            return
+        with self._plock:
+            txn = self._transactions.get(tid)
+            if txn is None:
+                raise ArrowInvalid("unknown transaction id")
+            txn.running += 1
+        try:
+            yield txn
+        finally:
+            with self._plock:
+                txn.running -= 1
+                txn.last = time.monotonic()
+
+    def _lock_for_write(self, name: Optional[str],
+                        txn: Optional[_Transaction]) -> int:
+        """Take `name`'s write lock (a transaction keeps it to its end);
+        the ns waited.  No wait closes a cycle (wait-die): a transaction
+        that holds write locks and finds one held by an older
+        transaction fails at once, to be rolled back and retried; any
+        other writer waits.  A holder idle past TXN_IDLE_S is rolled
+        back, since gRPC tells a server nothing of a client that left."""
+        if name is None or (txn is not None and name in txn.held):
+            return 0
+        t0 = time.time_ns()
+        while True:
+            self._expire()
+            with self._released:
+                if name not in self._writers:
+                    self._writers[name] = txn
+                    break
+                holder = self._writers[name]
+                if txn is not None and txn.held and holder is not None \
+                        and holder.seq < txn.seq:
+                    raise ArrowInvalid(
+                        f"table {name!r} is written by an older "
+                        f"transaction: roll this one back and retry")
+                self._released.wait(TXN_IDLE_S)
+        waited = time.time_ns() - t0
+        if txn is not None:
+            txn.held.add(name)
+            txn.wait_ns += waited
+        return waited
+
+    def _unlock(self, names) -> None:
+        with self._released:
+            for name in names:
+                self._writers.pop(name, None)
+            self._released.notify_all()
+
+    def _expire(self) -> None:
+        """Roll back the open transactions idle past TXN_IDLE_S."""
+        now = time.monotonic()
+        with self._plock:
+            idle = [tid for tid, x in self._transactions.items()
+                    if not x.running and now - x.last > TXN_IDLE_S]
+            txns = [self._transactions.pop(tid) for tid in idle]
+        for txn in txns:
+            self._end(txn, "expired")
+
+    def _end(self, txn: _Transaction, outcome: str) -> None:
+        """Publish a committed transaction's versions (one commit), then
+        release its write locks."""
+        try:
+            if outcome == "commit":
+                self._publish(txn.versions, txn.wait_ns)
+        finally:
+            self._unlock(txn.held)
+            trace.record("flightsql.transaction", txn.start_ns,
+                         statements=txn.statements, outcome=outcome)
+
+    def _publish(self, versions: Dict[str, Optional[TableVersion]],
+                 wait_ns: int) -> None:
+        """Swap in every version at once, as one commit."""
+        if not versions:
+            return
+        names = sorted(versions)
+        with trace.span("table.publish", tables=",".join(names),
+                        wait_ns=wait_ns):
             with self._lock:
-                snapshot = dict(self._tables)
-            mutations, count = self._update_executor(snapshot, query)
-            with self._lock:
-                for name, table in mutations.items():
-                    if table is None:
+                self._commit += 1
+                for name, v in versions.items():
+                    if v is None:
                         self._tables.pop(name, None)
                         self._temp_tables.discard(name)
                     else:
-                        self._tables[name] = table
-        return count
+                        self._tables[name] = v
+                self.history.append((self._commit, tuple(names)))
+
+    def _write(self, name: Optional[str], tid: Optional[bytes],
+               kind: str, make: Callable) -> int:
+        """One write to table `name` as one statement at the gate:
+        `make(snapshot)` -> ({name: Delta}, count) over the versions the
+        writer sees (its write lock held, taken before the gate);
+        published now, or kept by the transaction `tid`."""
+        with self._in_transaction(tid) as txn:
+            wait_ns = self._lock_for_write(name, txn)
+
+            def run():
+                snap = self._snapshot(txn)
+                deltas, n = make(snap)
+                made = {}
+                for tname, d in deltas.items():
+                    if name is not None and tname != name:
+                        raise ArrowInvalid(f"a write to {name!r} changed "
+                                           f"{tname!r}")
+                    made[tname] = self._applied(snap, tname, d)
+                return made, n
+            try:
+                made, n = self.gate.run(kind, run)
+                if txn is None:
+                    self._publish(made, wait_ns)
+                else:
+                    txn.versions.update(made)
+                    txn.statements += 1
+            finally:
+                if txn is None and name is not None:
+                    self._unlock([name])
+            return n
+
+    @staticmethod
+    def _applied(snap: _Snapshot, name: str, d) -> Optional[TableVersion]:
+        """The version after one statement's delta (a Table from an
+        executor that returns tables: the table anew; None: dropped)."""
+        if d is None or (isinstance(d, Delta) and d.drop):
+            return None
+        if isinstance(d, Table):
+            d = Delta(table=d)
+        base = dict.get(snap, name)
+        if d.table is not None or base is None:
+            v = TableVersion.of(d.table)
+            if d.derived:
+                v.derived = snap.as_of()
+            return v
+        return base.apply(d, name)
+
+    # -- command plumbing ------------------------------------------------
+    def _run(self, query: str, kind: str = "query",
+             tid: Optional[bytes] = None) -> Table:
+        with self._in_transaction(tid) as txn:
+            def run():
+                snap = self._snapshot(txn)
+                return _stamped(self._executor(snap, query), snap.as_of())
+            return self.gate.run(kind, run)
+
+    def _run_update(self, query: str, kind: str = "update",
+                    tid: Optional[bytes] = None) -> int:
+        """Execute DML or DDL as one write to the table it names."""
+        from ..sql import update_target
+        return self._write(update_target(query), tid, kind,
+                           lambda snap: self._update_executor(snap, query))
 
     def _bound_query(self, handle: bytes) -> str:
         """Prepared handle -> query text with any bound parameter row
@@ -744,7 +997,7 @@ class FlightSQLServer(FlightServer):
         def column(values):
             return _column(values, device=self.device)
         if name == "CommandStatementQuery":
-            return self._run(f[1][0].decode())
+            return self._run(f[1][0].decode(), tid=_pb_first_bytes(f, 2))
         if name == "CommandPreparedStatementQuery":
             return self._run(self._bound_query(f[1][0]), "prepared")
         if name == "CommandGetCatalogs":
@@ -839,7 +1092,8 @@ class FlightSQLServer(FlightServer):
             plan = pf.get(1, [b""])[0]
             version = pf.get(2, [b""])[0].decode() if 2 in pf else ""
             return self.gate.run("query", lambda: self._substrait_executor(
-                dict(self._tables), plan, version))
+                {n: v.visible() for n, v in self._snapshot().items()},
+                plan, version))
         if name == "CommandGetXdbcTypeInfo":
             rows = _XDBC_TYPES
             if 1 in f:
@@ -881,7 +1135,8 @@ class FlightSQLServer(FlightServer):
                 cached = self._results.pop(ticket, None)
             return [cached if cached is not None
                     else self._table_for_cmd(ticket)]
-        return super().do_get(ticket)
+        return (t.visible() if isinstance(t, TableVersion) else t
+                for t in super().do_get(ticket))
 
     def do_put(self, descriptor, tables, schema=None):
         """FlightSQL DML surface (sql/server.rs:399,410
@@ -891,17 +1146,15 @@ class FlightSQLServer(FlightServer):
         plain Flight dataset registry.  Returns the PutResult
         app_metadata bytes (DoPutUpdateResult)."""
         if descriptor is None or descriptor.type != DESCRIPTOR_CMD:
-            return super().do_put(descriptor, tables, schema=schema)
+            from .hostio import to_device
+            return super().do_put(descriptor, [to_device(t, self.device)
+                                               for t in tables],
+                                  schema=schema)
         name, body = _any_unpack(descriptor.cmd)
         f = _parse_fields(body)
         if name == "CommandStatementUpdate":
-            tid = _pb_first_bytes(f, 2)
-            if tid:
-                with self._plock:
-                    if tid not in self._transactions:
-                        raise ArrowInvalid("unknown transaction id")
             return _do_put_update_result(self._run_update(
-                f[1][0].decode()))
+                f[1][0].decode(), tid=_pb_first_bytes(f, 2)))
         if name == "CommandPreparedStatementUpdate":
             handle = f[1][0]
             with self._plock:
@@ -936,7 +1189,9 @@ class FlightSQLServer(FlightServer):
     def _ingest(self, f, tables, schema):
         """CommandStatementIngest semantics (FlightSql.proto
         TableDefinitionOptions): create/fail on missing target,
-        fail/append/replace on existing."""
+        fail/append/replace on existing.  APPEND writes the rows into
+        the table's version (storage.TableVersion), as INSERT does; a
+        transaction id keeps the write until EndTransaction."""
         tdo = _parse_fields(_pb_first_bytes(f, 1)) if 1 in f else {}
         if_not_exist = _pb_first(tdo, 1, 0)
         if_exists = _pb_first(tdo, 2, 0)
@@ -945,21 +1200,16 @@ class FlightSQLServer(FlightServer):
             raise ArrowInvalid("CommandStatementIngest needs a table")
         temporary = bool(_pb_first(f, 5, 0))
         tid = _pb_first_bytes(f, 6)
-        if tid:
-            with self._plock:
-                if tid not in self._transactions:
-                    raise ArrowInvalid("unknown transaction id")
         if tables:
             data = _concat(tables)
         elif schema is not None:
             data = _empty_table(schema, self.device)
         else:
             raise ArrowInvalid("ingest stream carried no schema")
-        # one writer at a time: two concurrent APPENDs must not both
-        # read the same `existing` and drop one batch (lost update)
-        with self._update_lock:
-            with self._lock:
-                existing = self._tables.get(target)
+        from .hostio import to_device
+
+        def make(snap):
+            existing = dict.get(snap, target)
             if existing is None:
                 if if_not_exist == 2:  # TABLE_NOT_EXIST_OPTION_FAIL
                     raise ArrowInvalid(
@@ -967,30 +1217,26 @@ class FlightSQLServer(FlightServer):
                 if if_not_exist == 0:
                     raise ArrowInvalid(
                         "TableNotExistOption must be CREATE or FAIL")
-                new = data
-            else:
-                if if_exists == 1:     # TABLE_EXISTS_OPTION_FAIL
-                    raise ArrowInvalid(
-                        f"table {target!r} already exists")
-                if if_exists == 3:     # REPLACE
-                    new = data
-                elif if_exists == 2:   # APPEND
-                    if tuple(fl.dtype for fl in data.schema.fields) != \
-                            tuple(fl.dtype for fl in
-                                  existing.schema.fields):
-                        raise ArrowInvalid(
-                            "ingest schema does not match existing "
-                            "table")
-                    new = _concat([existing, data])
-                else:
-                    raise ArrowInvalid(
-                        "TableExistsOption must be FAIL, APPEND or "
-                        "REPLACE")
+                return {target: Delta(table=to_device(data, self.device))}, \
+                    data.num_rows
+            if if_exists == 1:         # TABLE_EXISTS_OPTION_FAIL
+                raise ArrowInvalid(f"table {target!r} already exists")
+            if if_exists == 3:         # REPLACE
+                return {target: Delta(table=to_device(data, self.device))}, \
+                    data.num_rows
+            if if_exists != 2:         # APPEND
+                raise ArrowInvalid("TableExistsOption must be FAIL, "
+                                   "APPEND or REPLACE")
+            if tuple(fl.dtype for fl in data.schema.fields) != \
+                    tuple(fl.dtype for fl in existing.schema.fields):
+                raise ArrowInvalid(
+                    "ingest schema does not match existing table")
+            return {target: Delta(append=data)}, data.num_rows
+        n = self._write(target, tid, "ingest", make)
+        if temporary:
             with self._lock:
-                self._tables[target] = new
-                if temporary:
-                    self._temp_tables.add(target)
-        return _do_put_update_result(data.num_rows)
+                self._temp_tables.add(target)
+        return _do_put_update_result(n)
 
     def do_action(self, action_type: str, body: bytes):
         if action_type == "CreatePreparedStatement":
@@ -1041,9 +1287,10 @@ class FlightSQLServer(FlightServer):
             yield _varint_field(1, status)
             return
         if action_type == "BeginTransaction":
+            self._expire()
             tid = _uuid.uuid4().bytes
             with self._plock:
-                self._transactions.add(tid)
+                self._transactions[tid] = _Transaction(next(self._ages))
             yield _any_pack("ActionBeginTransactionResult",
                             _field(1, tid))
             return
@@ -1056,12 +1303,15 @@ class FlightSQLServer(FlightServer):
                 raise ArrowInvalid("EndTransaction action must be "
                                    "COMMIT or ROLLBACK")
             with self._plock:
-                if tid not in self._transactions:
+                txn = self._transactions.get(tid)
+                if txn is None:
                     raise ArrowInvalid("unknown transaction id")
-                # the engine's tables are immutable snapshots: commit
-                # and rollback both just retire the id (server.rs
-                # delegates transaction semantics to the application)
-                self._transactions.discard(tid)
+                if txn.running:          # its write locks are not all had
+                    raise ArrowInvalid("a statement of the transaction is "
+                                       "still running")
+                del self._transactions[tid]
+            # END_TRANSACTION_COMMIT = 1
+            self._end(txn, "commit" if end == 1 else "rollback")
             return
         yield from super().do_action(action_type, body)
 

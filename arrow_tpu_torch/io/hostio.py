@@ -12,6 +12,10 @@ buffers on the host.  Everything crosses here, once each way:
   - `tensor(a, device)`: a host buffer (often a read-only view of file
     bytes) as a tensor on `device`, always a copy, so no column aliases
     a file's or a producer's memory.
+  - `to_device(x, device)`: a tensor, column or table of host tensors on
+    `device`; onto a card each buffer goes through pinned memory and is
+    queued on the stream, so the host does not wait for the card's
+    earlier work (a plain copy from pageable memory does).
   - `values(col)`: a host PrimitiveColumn's values in their logical
     numpy dtype (unsigned types are held on signed storage).
   - `pool_map(fn, items)`: the one thread pool of the file layer's
@@ -34,7 +38,7 @@ from torch.utils import _pytree as pytree
 
 from ..core.column import DictionaryColumn
 
-__all__ = ["tensor", "to_host", "values", "host", "pool_map"]
+__all__ = ["tensor", "to_device", "to_host", "values", "host", "pool_map"]
 
 
 def tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -45,6 +49,19 @@ def tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
     with warnings.catch_warnings():       # read-only: copied just below
         warnings.simplefilter("ignore", UserWarning)
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def to_device(x, device: torch.device):
+    """`x` (a tensor, column or table) with its host tensors on `device`
+    (see the module's docstring); tensors elsewhere stay."""
+    if device.type != "cuda":
+        return _move(x, lambda t: t.to(device))
+
+    def copy(t):
+        if t.device.type != "cpu":
+            return t
+        return t.pin_memory().to(device, non_blocking=True)
+    return _move(x, copy)
 
 
 def _move(x, copy):

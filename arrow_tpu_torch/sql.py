@@ -48,6 +48,7 @@ import datetime
 import decimal
 import math
 
+import numpy as np
 import torch
 
 from . import dtypes as dt
@@ -57,6 +58,7 @@ from .core.column import (Column, NullColumn, PrimitiveColumn, StringColumn,
 from .core.datum import scalar as make_scalar
 from .core.table import Table
 from .errors import ArrowInvalid
+from .storage import Delta, TableVersion
 from .utils.trace import annotate, count, span, to_host
 
 __all__ = ["execute_sql", "execute_sql_update", "bind_sql_params"]
@@ -82,10 +84,38 @@ _KEYWORDS = {
 }
 
 
+# an IN list of integer literals alone is read as one token
+_INTS = re.compile(r"\(\s*+(-?\d++(?:\s*+,\s*+-?\d++)*+)\s*+\)")
+_INT64 = np.iinfo(np.int64)
+
+
+def _int_run(q: str, at: int):
+    """(the integers as an int64 array, end) of a parenthesized list of
+    integer literals starting at `at`; None where there is none or an
+    item is past int64."""
+    m = _INTS.match(q, at)
+    if m is None:
+        return None
+    text = m.group(1)
+    ints = np.fromstring(text, dtype=np.int64, sep=",")  # saturates
+    if ints.min() == _INT64.min or ints.max() == _INT64.max:
+        try:
+            ints = np.array([int(x) for x in text.split(",")], np.int64)
+        except OverflowError:
+            return None
+    return ints, m.end()
+
+
 def _tokenize(q: str) -> List[Tuple[str, str]]:
     out = []
     pos = 0
     while pos < len(q):
+        if out and out[-1] == ("kw", "in"):
+            run = _int_run(q, len(q) - len(q[pos:].lstrip()))
+            if run is not None:
+                out.append(("ints", run[0]))
+                pos = run[1]
+                continue
         m = _TOKEN.match(q, pos)
         if not m:
             if q[pos:].strip() == "":
@@ -155,6 +185,12 @@ class InList:
     expr: object
     items: list
     negated: bool
+    ints: Optional[np.ndarray] = None    # a list of integers, as read
+
+
+def _items(e: InList) -> list:
+    """An IN list's items as expressions."""
+    return e.items if e.ints is None else [Lit(v) for v in e.ints.tolist()]
 
 
 @dataclass
@@ -239,6 +275,8 @@ class _Parser:
             t = self.peek()
         if t == ("kw", "in"):
             self.next()
+            if self.peek()[0] == "ints":
+                return InList(e, [], neg, self.next()[1])
             self.expect("op", "(")
             items = [self.expr()]
             while self.accept("op", ","):
@@ -383,10 +421,22 @@ def _is_agg(e) -> bool:
     return False
 
 
+def _rows_of(t) -> Table:
+    """The rows a statement reads of a table or a table version
+    (storage.TableVersion): every row written, deleted ones too; the
+    version's live mask says which remain."""
+    return t.table if isinstance(t, TableVersion) else t
+
+
+def _live_of(t) -> Optional[torch.Tensor]:
+    """A table version's live mask (None: no row deleted)."""
+    return t.live if isinstance(t, TableVersion) else None
+
+
 def _device_of(tables) -> Optional[torch.device]:
     """The one device of the tables' columns (None when they have no
     columns); tables on two devices raise."""
-    devs = {c.device for t in tables for c in t.columns}
+    devs = {c.device for t in tables for c in _rows_of(t).columns}
     if len(devs) > 1:
         raise ArrowInvalid(f"SQL over tables on several devices: "
                            f"{sorted(str(d) for d in devs)}")
@@ -463,10 +513,11 @@ class _Evaluator:
             m = b_ops.is_null(c)
             return b_ops.not_(m) if e.op == "notnull" else m
         if isinstance(e, InList):
-            acc = None
-            for item in e.items:
-                m = self.eval(Bin("=", e.expr, item))
-                acc = m if acc is None else b_ops.or_kleene(acc, m)
+            acc = self._member(e)
+            if acc is None:
+                for item in _items(e):
+                    m = self.eval(Bin("=", e.expr, item))
+                    acc = m if acc is None else b_ops.or_kleene(acc, m)
             if acc is None:
                 acc = _literal_column(False, self.t.num_rows, self.dev)
             return b_ops.not_(acc) if e.negated else acc
@@ -481,6 +532,31 @@ class _Evaluator:
         if isinstance(e, Func):
             return self._func(e)
         raise ArrowInvalid(f"cannot evaluate {e!r}")
+
+    def _member(self, e: InList) -> Optional[Column]:
+        """`e.expr IN (...)` as one membership test on the column's device,
+        where the list is integer literals alone (read as one token) and
+        the expression an integer column whose type holds every item: the
+        distinct items as the column stores them, sorted, a binary search
+        a row, one compare; NULL where the row is NULL, as the ORs of the
+        per-item comparisons give it.  None otherwise (the items are then
+        compared one by one)."""
+        if e.ints is None:
+            return None
+        c = self.eval(e.expr)
+        if not isinstance(c, PrimitiveColumn) or not c.dtype.is_integer:
+            return None
+        ints = torch.from_numpy(e.ints)
+        lo, hi = dt.integer_bounds(c.dtype)
+        if int(ints.min()) < lo or int(ints.max()) > hi:
+            return None
+        from .io.hostio import to_device
+        test = to_device(ints.to(c.values.dtype).unique(), c.device)
+        at = torch.searchsorted(test, c.values).clamp_(max=len(test) - 1)
+        hit = test[at] == c.values
+        if c.validity is not None:
+            hit = hit & c.validity
+        return PrimitiveColumn(hit, dt.bool_, c.validity, _canonical=True)
 
     def _coerce_pair(self, le, re_):
         """Evaluate a binary op's operands with SQL literal coercion:
@@ -746,7 +822,7 @@ def _row_safe(e) -> bool:
     if isinstance(e, Un):
         return e.op != "neg" and _row_safe(e.operand)
     if isinstance(e, InList):
-        return all(map(_row_safe, [e.expr] + e.items))
+        return all(map(_row_safe, [e.expr] + e.items))   # ints are literals
     if isinstance(e, Between):
         return all(map(_row_safe, (e.expr, e.lo, e.hi)))
     if isinstance(e, LikeOp):
@@ -886,30 +962,47 @@ def _select(tables: Dict[str, Table], query: str) -> Table:
     # read only the columns the statement names (SELECT * reads every
     # one).  A name is kept on every table at once, so a collision is
     # kept on both sides or on neither and each join names its columns
-    # as it would over the whole tables.
-    src = {n: tables[n] for n in read}
+    # as it would over the whole tables.  A table version's rows are
+    # every row written; its live mask drops the deleted ones below.
+    src = {n: _rows_of(tables[n]) for n in read}
+    live = {n: m for n in dict.fromkeys(read)
+            if (m := _live_of(tables[n])) is not None}
+    columns_in = sum(src[n].num_columns for n in read)
     if items is not None:
         names = _named_columns(joins, [items, where, group, having, order],
                                aliases)
         src = {n: _prune(s, names) for n, s in src.items()}
-    columns_in = sum(tables[n].num_columns for n in read)
     columns_read = sum(src[n].num_columns for n in read)
 
     # the WHERE's one-table conjuncts filter their table before the
-    # joins; the columns only they named are then cut by the same rule
+    # joins; the columns only they named are then cut by the same rule.
+    # A live mask is one more conjunct of its table's filter (a table
+    # without one costs nothing); over one table, a WHERE that cannot
+    # raise on a row's value joins it, so one filter does both
     pushed = {}
     if joins and where is not None:
         pushed, where = _pushdown(where, src, tname, joins, aliases)
     n_pushed = sum(map(len, pushed.values()))
+    if not joins and tname in live and where is not None \
+            and _row_safe(where):
+        pushed, where = {tname: _conjuncts(where)}, None
     annotate("sql.execute", columns_in=columns_in,
-             columns_read=columns_read, conjuncts_pushed=n_pushed)
+             columns_read=columns_read, conjuncts_pushed=n_pushed,
+             rows_masked=sum(tables[n].deleted for n in live))
     count("sql.columns_pruned", columns_in - columns_read)
     count("sql.conjuncts_pushed", n_pushed)
-    if pushed:
+    if pushed or live:
+        from .ops.boolean import and_kleene
         from .ops.filter import filter_table
-        masks = {n: _Evaluator(src[n], aliases, None, dev).eval(_and_all(es))
-                 for n, es in pushed.items()}
-        if items is not None:
+        masks = {}
+        for n in dict.fromkeys([*live, *pushed]):
+            m = None if n not in pushed else _Evaluator(
+                src[n], aliases, None, dev).eval(_and_all(pushed[n]))
+            if n in live:
+                keep = PrimitiveColumn(live[n], dt.bool_, _canonical=True)
+                m = keep if m is None else and_kleene(keep, m)
+            masks[n] = m
+        if pushed and items is not None:
             names = _named_columns(joins, [items, where, group, having,
                                            order], aliases)
             src = {n: _prune(s, names) for n, s in src.items()}
@@ -1011,7 +1104,7 @@ def _rewrite_aggs(e, add_agg):
         return Func(e.name, [_rewrite_aggs(a, add_agg) for a in e.args],
                     e.cast_to)
     if isinstance(e, InList):
-        return InList(_rewrite_aggs(e.expr, add_agg), e.items, e.negated)
+        return dataclasses.replace(e, expr=_rewrite_aggs(e.expr, add_agg))
     return e
 
 
@@ -1166,13 +1259,34 @@ def _typed_col(vals, dtype, dev: torch.device):
         return cast_kernel(make_col(vals, device=dev), dtype)
 
 
-def _mask_arrays(mask_col):
-    """Bool predicate column -> (true & valid bool tensor on its device,
-    count)."""
+def _mask_arrays(mask_col, live: Optional[torch.Tensor] = None):
+    """Bool predicate column -> (true & valid (& live) bool tensor on its
+    device, count)."""
     m = mask_col.values.to(torch.bool)
     if getattr(mask_col, "validity", None) is not None:
         m = m & mask_col.validity
+    if live is not None:
+        m = m & live
     return m, int(to_host("sql.matched", m.sum()))
+
+
+def _visible(t) -> Table:
+    """The rows a reader sees of a table or a table version."""
+    return t.visible() if isinstance(t, TableVersion) else t
+
+
+_TARGET = re.compile(
+    r"\s*(?:insert\s+into|update|delete\s+from|create\s+table"
+    r"(?:\s+if\s+not\s+exists)?|drop\s+table(?:\s+if\s+exists)?)"
+    r"\s+([A-Za-z_][A-Za-z_0-9]*)", re.IGNORECASE)
+
+
+def update_target(query: str) -> Optional[str]:
+    """The one table a DML or DDL statement writes, read from its head
+    (None where the head names none: the statement then fails to
+    parse)."""
+    m = _TARGET.match(query)
+    return None if m is None else m.group(1)
 
 
 def _select_tail(query: str) -> str:
@@ -1184,15 +1298,21 @@ def _select_tail(query: str) -> str:
 
 def execute_sql_update(tables: Dict[str, Table], query: str, *,
                        device: DeviceLike = None
-                       ) -> Tuple[Dict[str, Optional[Table]], int]:
-    """Execute one DML/DDL statement against `tables`.
+                       ) -> Tuple[Dict[str, Delta], int]:
+    """Execute one DML/DDL statement against `tables` (Tables or
+    storage.TableVersions).
 
-    Returns (mutations, record_count): mutations maps table name ->
-    new Table (None = dropped); record_count is the DoPutUpdateResult
-    count (rows inserted / matched / deleted; 0 for DDL).  Rows are
-    made on the device of the table they go to; `CREATE TABLE t (...)`
-    makes its empty table on `device`, or without one on the device of
-    the tables in `tables`.
+    Returns (deltas, record_count): deltas maps the table written to
+    what the statement changes (storage.Delta), not to a rewritten
+    table: INSERT gives the rows to append, DELETE ... WHERE a mask of
+    the rows it deletes (over every row the table holds, deleted ones
+    too, which it never matches), UPDATE, DELETE without WHERE and
+    CREATE TABLE the table anew, DROP TABLE a drop;
+    `TableVersion.apply` makes the next version.  record_count is the
+    DoPutUpdateResult count (rows inserted / matched / deleted; 0 for
+    DDL).  Rows are made on the device of the table they go to;
+    `CREATE TABLE t (...)` makes its empty table on `device`, or without
+    one on the device of the tables in `tables`.
 
     Grammar: INSERT INTO t [(cols)] VALUES (...)[, ...] | SELECT ...;
     UPDATE t SET c = expr [, ...] [WHERE pred];
@@ -1205,7 +1325,7 @@ def execute_sql_update(tables: Dict[str, Table], query: str, *,
 
 
 def _update(tables: Dict[str, Table], query: str, device: DeviceLike
-            ) -> Tuple[Dict[str, Optional[Table]], int]:
+            ) -> Tuple[Dict[str, Delta], int]:
     p = _Parser(_tokenize(query))
 
     if _word(p, "insert"):
@@ -1266,16 +1386,13 @@ def _update(tables: Dict[str, Table], query: str, device: DeviceLike
                     cols.append(_typed_col([None] * sel.num_rows,
                                            f.dtype, dev))
             add = Table(tuple(cols), target.schema)
-        from .ops.concat import concat_tables
-        new = add if target.num_rows == 0 else \
-            concat_tables([target, add])
-        return {tname: new}, add.num_rows
+        return {tname: Delta(append=add)}, add.num_rows
 
     if _word(p, "update"):
         tname = p.expect("id")[1]
         if tname not in tables:
             raise ArrowInvalid(f"no such table {tname!r}")
-        t = tables[tname]
+        t = _visible(tables[tname])
         _expect_word(p, "set")
         sets = []
         while True:
@@ -1307,22 +1424,32 @@ def _update(tables: Dict[str, Table], query: str, device: DeviceLike
                 else zip_kernel(mask, newc, old)
         cols = tuple(updates.get(f.name, c)
                      for f, c in zip(t.schema.fields, t.columns))
-        return {tname: Table(cols, t.schema)}, count
+        return {tname: Delta(table=Table(cols, t.schema))}, count
 
     if _word(p, "delete"):
         p.expect("kw", "from")
         tname = p.expect("id")[1]
         if tname not in tables:
             raise ArrowInvalid(f"no such table {tname!r}")
-        t = tables[tname]
+        v = tables[tname]
         where = p.expr() if p.accept("kw", "where") else None
         p.expect("end")
         if where is None:
-            return {tname: t.slice(0, 0)}, t.num_rows
-        m, count = _mask_arrays(_Evaluator(t, {}).eval(where))
-        from .ops.filter import filter_table
-        keep = PrimitiveColumn(~m, dt.bool_, _canonical=True)
-        return {tname: filter_table(t, keep)}, count
+            t = _visible(v)
+            return {tname: Delta(table=t.slice(0, 0))}, t.num_rows
+        t, live = _rows_of(v), _live_of(v)
+        if live is None or _row_safe(where):
+            m, count = _mask_arrays(_Evaluator(t, {}).eval(where), live)
+        else:
+            # a WHERE that may raise on a row's value reads only the rows
+            # a reader sees; its matches go back to their rows
+            seen, count = _mask_arrays(_Evaluator(v.visible(), {})
+                                       .eval(where))
+            m = torch.zeros_like(live)
+            if len(seen):
+                at = (torch.cumsum(live, 0) - 1).clamp_(min=0)
+                m = live & seen[at]
+        return {tname: Delta(delete=m, deleted=count)}, count
 
     if _word(p, "create"):
         _expect_word(p, "table")
@@ -1338,7 +1465,7 @@ def _update(tables: Dict[str, Table], query: str, device: DeviceLike
             raise ArrowInvalid(f"table {tname!r} already exists")
         if p.accept("kw", "as"):
             sel = execute_sql(tables, _select_tail(query))
-            return {tname: sel}, sel.num_rows
+            return {tname: Delta(table=sel, derived=True)}, sel.num_rows
         p.expect("op", "(")
         fields = []
         while True:
@@ -1360,7 +1487,7 @@ def _update(tables: Dict[str, Table], query: str, device: DeviceLike
                                "or a catalog of tables on one")
         cols = tuple(NullColumn(0, dev) if f.dtype.is_null
                      else _empty_col(f.dtype, dev) for f in fields)
-        return {tname: Table(cols, dt.Schema(tuple(fields)))}, 0
+        return {tname: Delta(table=Table(cols, dt.Schema(tuple(fields))))}, 0
 
     if _word(p, "drop"):
         _expect_word(p, "table")
@@ -1374,7 +1501,7 @@ def _update(tables: Dict[str, Table], query: str, device: DeviceLike
             if if_exists:
                 return {}, 0
             raise ArrowInvalid(f"no such table {tname!r}")
-        return {tname: None}, 0
+        return {tname: Delta(drop=True)}, 0
 
     raise ArrowInvalid(
         "expected INSERT / UPDATE / DELETE / CREATE / DROP")

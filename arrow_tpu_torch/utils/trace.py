@@ -34,6 +34,8 @@ of arrow_tpu/utils/trace.py; the spans and `to_host` are the port's own).
   card, CUDA activity), written to `path` as a Chrome trace, in place of
   the reference's jax.profiler.trace; the spans recorded inside show on
   it by name.
+- `record(name, start_ns, **attrs)`: a span that began on an earlier
+  call, closed now (a Flight SQL transaction).
 - `count`, `counters_snapshot`, `reset_counters`: named counters that
   make a silent plan choice observable.
 
@@ -61,7 +63,7 @@ from ..config import in_fused_region
 __all__ = ["OpTimings", "op_timer", "timings", "trace", "reset_timings",
            "count", "counters_snapshot", "reset_counters", "Span", "span",
            "annotate", "recording", "spans", "reset_spans", "self_ns",
-           "span_report", "to_host"]
+           "span_report", "to_host", "record"]
 
 
 @dataclass
@@ -233,6 +235,17 @@ def span(name: str, **attrs):
     if not _on():
         return _OFF
     return _Recorded(name, attrs)
+
+
+def record(name: str, start_ns: int, **attrs) -> None:
+    """Close a span begun at `start_ns` by an earlier call (a Flight SQL
+    transaction, from its begin to its end), as a root span of this
+    thread, when spans record.  It opens no record_function."""
+    if not _on():
+        return
+    sid = next(_ids)
+    _spans.append(Span(name, start_ns, time.time_ns(), sid, None, sid,
+                       threading.get_ident(), attrs))
 
 
 def annotate(name: str, **attrs) -> None:

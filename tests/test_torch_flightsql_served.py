@@ -331,10 +331,10 @@ def _until(cond):
 
 
 def test_ctas_waiting_alone_does_not_deadlock_a_dml(served):
-    """The CTAS holds the update lock when it runs out of memory; an
-    INSERT admitted beside it waits for that lock.  The CTAS leaves the
-    lock before it waits to run alone, so the INSERT finishes, then the
-    CTAS runs alone."""
+    """The CTAS holds its table's write lock when it runs out of memory;
+    an INSERT into that table waits for the lock outside the gate, so the
+    CTAS runs again alone, publishes and leaves the lock, then the INSERT
+    runs."""
     server, _ = served
     real = server._update_executor
 
@@ -342,8 +342,8 @@ def test_ctas_waiting_alone_does_not_deadlock_a_dml(served):
         if query.startswith("CREATE") and not executor.raised:
             executor.raised = True
             ctas_in_lock.set()
-            _until(lambda: server.gate._shared == 2)   # the INSERT is in
-            time.sleep(0.1)                  # and waiting for the lock
+            time.sleep(0.2)                  # the INSERT waits for the lock
+            assert server.gate._shared == 1  # outside the gate
             raise _oom()
         return real(tables, query)
     executor.raised = False
@@ -353,13 +353,12 @@ def test_ctas_waiting_alone_does_not_deadlock_a_dml(served):
 
     def insert():
         ctas_in_lock.wait(WAIT_S)
-        return clients[1].execute_update(
-            "INSERT INTO trades VALUES (50, 1.0)")
+        return clients[1].execute_update("INSERT INTO big VALUES (50, 1.0)")
     try:
         got = _threads([lambda: clients[0].execute_update(
             "CREATE TABLE big AS SELECT id, px FROM trades WHERE id >= 5"),
             insert])
-        assert got == [6, 1]            # the CTAS ran after the INSERT
+        assert got == [5, 1]            # the INSERT ran after the CTAS
         n = clients[0].execute("SELECT COUNT(*) AS n FROM big")
     finally:
         for c in clients:

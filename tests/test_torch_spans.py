@@ -345,6 +345,129 @@ def test_statement_names_the_columns_it_reads(query, read, pushed):
     _, spans = _recorded(lambda: execute_sql(tabs, query))
     (st,) = [s for s in spans if s.name == "sql.execute"]
     assert st.attrs == {"columns_in": 33, "columns_read": read,
-                        "conjuncts_pushed": pushed}
+                        "conjuncts_pushed": pushed, "rows_masked": 0}
     after = [trace.counters_snapshot()[n] for n in names]
     assert [a - b for a, b in zip(after, before)] == [33 - read, pushed]
+
+
+def _written(device) -> tuple:
+    """A version over a utf8, a large_utf8 and a dictionary column, and
+    rows to append whose dictionary holds a word the table's lacks."""
+    from arrow_tpu_torch.storage import TableVersion
+
+    def table(n, words):
+        return att.Table.from_pydict({
+            "k": np.arange(n, dtype=np.int64),
+            "s": [f"s{i % 7}" for i in range(n)],
+            "d": _dict_column([words[i % len(words)] for i in range(n)],
+                              device)}, device=device)
+    return TableVersion.of(table(40, ["a", "b"])), table(6, ["b", "c"])
+
+
+def _dict_column(values, device):
+    from arrow_tpu_torch.ops.strings import dictionary_encode
+    return dictionary_encode(att.column(values, device=device))
+
+
+def test_a_write_is_a_table_write_span():
+    """An append that grows the table's buffers and maps a new word into
+    its dictionary, then a delete: each a `table.write` span with its
+    table, rows added and deleted and bytes; the counters add the
+    versions, bytes and growths."""
+    from arrow_tpu_torch.storage import Delta
+    v, add = _written("cpu")
+    before = trace.counters_snapshot()
+
+    def write():
+        v1 = v.apply(Delta(append=add), "t")
+        gone = torch.zeros(46, dtype=torch.bool)
+        gone[:5] = True
+        return v1.apply(Delta(delete=gone, deleted=5), "t")
+    v2, spans = _recorded(write)
+    assert v2.num_rows == 41
+    assert v2.visible().column("d").to_pylist()[-6:] == \
+        ["b", "c", "b", "c", "b", "c"]
+    by_id = {s.id: s for s in spans}
+    ap, de = [s for s in spans if s.name == "table.write"]
+    assert {k: ap.attrs[k] for k in ("table", "rows_added",
+                                     "rows_deleted")} == \
+        {"table": "t", "rows_added": 6, "rows_deleted": 0}
+    assert {k: de.attrs[k] for k in ("table", "rows_added",
+                                     "rows_deleted")} == \
+        {"table": "t", "rows_added": 0, "rows_deleted": 5}
+    assert ap.attrs["bytes"] > 40 * 8 and de.attrs["bytes"] >= 80
+    # host tensors are read in place: no readback (on the card, the
+    # write's reads are `readback` spans: the card test below)
+    assert not [s for s in spans if s.name == "readback"]
+    assert all(by_id[s.parent] in (ap, de) for s in spans
+               if s.name != "table.write")
+    after = trace.counters_snapshot()
+    grown = {n: after.get(n, 0) - before.get(n, 0)
+             for n in ("tables.versions", "tables.bytes_written",
+                       "tables.regrows")}
+    assert grown["tables.versions"] == 2
+    assert grown["tables.bytes_written"] == ap.attrs["bytes"] + \
+        de.attrs["bytes"]
+    assert grown["tables.regrows"] >= 4
+
+
+def test_publish_and_transaction_spans():
+    """A transaction's two writes publish as one `table.publish` span
+    naming both tables, with the time waited for their write locks; the
+    transaction is a `flightsql.transaction` span from its begin to its
+    end, with its statements and outcome."""
+    from arrow_tpu_torch.io.flightsql import FlightSQLClient, FlightSQLServer
+    server = FlightSQLServer("grpc://localhost:0", device="cpu")
+    for name, t in _tables().items():
+        server.register(name, t)
+    client = FlightSQLClient(server.uri, device="cpu")
+
+    def run():
+        tid = client.begin_transaction()
+        client.execute_update("INSERT INTO custs VALUES (5, 'eve')",
+                              transaction_id=tid)
+        client.execute_update("DELETE FROM orders WHERE cust = 3",
+                              transaction_id=tid)
+        client.commit(tid)
+        tid = client.begin_transaction()
+        client.execute_update("DELETE FROM orders WHERE cust = 1",
+                              transaction_id=tid)
+        client.rollback(tid)
+    try:
+        _, spans = _recorded(run)
+    finally:
+        client.close()
+        server.shutdown()
+    pub, = [s for s in spans if s.name == "table.publish"]
+    assert pub.attrs["tables"] == "custs,orders"
+    assert isinstance(pub.attrs["wait_ns"], int) and pub.attrs["wait_ns"] >= 0
+    txns = [s for s in spans if s.name == "flightsql.transaction"]
+    assert [s.attrs for s in txns] == [
+        {"statements": 2, "outcome": "commit"},
+        {"statements": 1, "outcome": "rollback"}]
+    assert all(s.parent is None and s.end_ns > s.start_ns for s in txns)
+    writes = [s.attrs["table"] for s in spans if s.name == "table.write"]
+    assert writes == ["custs", "orders", "orders"]
+
+
+def test_a_writes_device_reads_are_readback_spans(cuda_device):
+    """On the card, under torch.profiler: every device-to-host copy an
+    append (a growth and a new dictionary word) and a delete by an IN
+    list make falls inside a program `readback` span."""
+    from arrow_tpu_torch.sql import execute_sql_update
+    from benchmark.tests.test_bench_spans import readback_coverage
+    from benchmark.trace import Profile
+    from arrow_tpu_torch.storage import Delta
+    v, add = _written(cuda_device)
+    v.apply(Delta(append=add), "t")            # warm
+    torch.cuda.synchronize()
+    with Profile() as prof:
+        with torch.profiler.record_function("query write"):
+            v1 = v.apply(Delta(append=add), "t")
+            deltas, _ = execute_sql_update(
+                {"t": v1}, "DELETE FROM t WHERE k IN (1, 2, 3, 40)")
+            v1.apply(deltas["t"], "t")
+            torch.cuda.synchronize()
+    got = readback_coverage(prof.prof.profiler.kineto_results.events())
+    assert got["calls"] > 0
+    assert got["covered"] == got["calls"], got["outside"]

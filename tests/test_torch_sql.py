@@ -19,7 +19,8 @@ import arrow_tpu as at
 import arrow_tpu_torch as att
 from arrow_tpu import sql as rsql
 from arrow_tpu_torch import sql as psql
-from torch_port_util import (assert_tables_equal, cuda_device,  # noqa: F401
+from torch_port_util import (applied, assert_tables_equal,  # noqa: F401
+                             cuda_device,  # noqa: F401
                              port_table, route)  # noqa: F401
 
 CPU = "cpu"
@@ -164,8 +165,11 @@ def test_fuzz_where_agg_matches_reference(seed):
                             port_table(rsql.execute_sql({"t": ref}, query)))
 
 
-def _same_mutation(got, want):
+def _same_mutation(port, got, want):
+    """The reference's mutated tables against the port's tables after its
+    deltas."""
     (gm, gn), (wm, wn) = got, want
+    gm = applied(port, gm)
     assert gn == wn
     assert sorted(gm) == sorted(wm)
     for k in wm:
@@ -201,7 +205,7 @@ def test_statement_matches_reference(stmt):
     ref = {"x": at.Table.from_pydict({"a": [1, 2, 3], "s": ["p", "q", "r"]}),
            "e": _db()["e"]}
     port = {k: port_table(v) for k, v in ref.items()}
-    _same_mutation(psql.execute_sql_update(port, stmt),
+    _same_mutation(port, psql.execute_sql_update(port, stmt),
                    rsql.execute_sql_update(ref, stmt))
 
 
@@ -220,7 +224,7 @@ def test_statement_errors_match_reference(stmt):
 def test_create_table_takes_a_device():
     got, _ = psql.execute_sql_update({}, "CREATE TABLE y (k INT)",
                                      device=CPU)
-    assert got["y"].column("k").device == torch.device("cpu")
+    assert got["y"].table.column("k").device == torch.device("cpu")
     with pytest.raises(att.errors.ArrowInvalid):
         psql.execute_sql_update({}, "CREATE TABLE y (k INT)")
 

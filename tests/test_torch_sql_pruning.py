@@ -163,12 +163,13 @@ def test_create_table_as_select(dbs):
     got, n = psql.execute_sql_update(port, query)
     want, want_n = ref_sql_update(ref, query)
     assert list(got) == ["late"] and n == want_n > 0
-    assert_tables_equal(got["late"], want["late"])
+    assert_tables_equal(got["late"].table, want["late"])
     whole, _ = _unpruned(lambda: psql.execute_sql_update(port, query))
-    assert_tables_equal(got["late"], whole["late"])
+    assert_tables_equal(got["late"].table, whole["late"].table)
     count = ("SELECT o_orderpriority, COUNT(*) AS order_count FROM late "
              "GROUP BY o_orderpriority ORDER BY o_orderpriority")
-    assert_tables_equal(psql.execute_sql({**port, **got}, count),
+    assert_tables_equal(psql.execute_sql({**port, "late": got["late"].table},
+                                         count),
                         ref_sql({**ref, **want}, count))
 
 

@@ -485,3 +485,24 @@ def assert_parquet_like_reference(got: bytes, want: bytes) -> None:
     assert gf.pop(6) == b"arrow_tpu_torch native writer"
     assert wf.pop(6) == b"arrow_tpu native writer"
     assert gf == wf
+
+
+def applied(tables: dict, deltas: dict) -> dict:
+    """The port's tables that `sql.execute_sql_update`'s deltas name,
+    after them, as plain Tables (None: dropped): each delta applied to a
+    version of its table (arrow_tpu_torch.storage), its rows as a reader
+    sees them."""
+    from arrow_tpu_torch.storage import TableVersion
+    out = {}
+    for name, d in deltas.items():
+        if d.drop:
+            out[name] = None
+            continue
+        base = tables.get(name)
+        if base is None or d.table is not None:
+            out[name] = d.table
+            continue
+        if not isinstance(base, TableVersion):
+            base = TableVersion.of(base)
+        out[name] = base.apply(d, name).visible()
+    return out
